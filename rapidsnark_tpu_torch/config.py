@@ -4,7 +4,10 @@ package):
     RSTPU_WINDOW_BITS    Pippenger window size c (default: auto by n)
     RSTPU_WINDOW_GROUP   windows batched per MSM group (default 5)
     RSTPU_MSM_SEGMENT    points per MSM bucket slice (default: 0 up to
-                         2^21 points; the segmented path is not ported)
+                         2^21 points, 2^20 above, 2^19 from 2^24)
+    RSTPU_NTT_FUSE       0: per-stage NTT layers (ntt_tail + one
+                         ntt_butterfly per upper layer); anything else:
+                         fused passes (default: fused from 2^12 points)
 """
 
 from __future__ import annotations
@@ -35,3 +38,12 @@ def msm_segment(n: int) -> int:
     if n >= (1 << 24):
         return 1 << 19
     return (1 << 20) if n > (1 << 21) else 0
+
+
+def ntt_fuse(n: int) -> bool:
+    """Whether an n-point transform runs as fused passes; the variable,
+    when set, decides at every size."""
+    v = os.environ.get("RSTPU_NTT_FUSE")
+    if v is not None:
+        return v != "0"
+    return n >= (1 << 12)

@@ -80,3 +80,22 @@ def tables_to_numpy(tables: dict) -> Dict:
     if "left_val" in tables:
         out["left_val"] = tables["left_val"].cpu().numpy().view(np.uint32)
     return out
+
+
+def tail_twiddles_from_jax(tws_by_half: dict, n: int, device="cpu"):
+    """The JAX package's per-half twiddle rows of `ntt_tail` ({half:
+    (16, half)} limbs, half = 1..64) -> the port's twiddle argument: the
+    (n/2, 8) table of the direction with the rows those layers read
+    filled in (row j * n / (2 * half) for j < half) and zeros elsewhere."""
+    out = np.zeros((n // 2, 8), np.uint32)
+    for half, rows in tws_by_half.items():
+        out[::n // (2 * half)][:half] = _words_rows(rows)
+    return _t(out, device)
+
+
+def limb_affine_from_jax(leaves, device="cpu"):
+    """Unpacked affine leaves of the JAX package, each (16, *b) limbs in
+    the order x, y (Fq2: c0 before c1) -> the port's limb-form operand
+    (*b, A, 16), one 16-bit limb per word."""
+    return _t(np.stack([np.moveaxis(_w(a), 0, -1) for a in leaves], axis=-2),
+              device)

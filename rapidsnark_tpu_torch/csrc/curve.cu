@@ -1,10 +1,15 @@
-// Complete projective point adders for the MSM: `add` and
+// Complete projective point adders. For the MSM: `add` and
 // `scan_cols_packed`, G1 (relaxed [0, 2p] law, b3 = 9) and the G2
-// iso-twist (canonical Fq2 law, b3 = 3+27i as a shift-add chain).
+// iso-twist (canonical Fq2 law, b3 = 3+27i as a shift-add chain). For
+// the fixture generator's fixed-base ladders: `add_mixed_packed` and
+// `add_mixed`, the strict (canonical) mixed add on G1 and on G2's
+// original twist (b3 = 9/(9+i), a full Fq2 product), the affine operand
+// as packed words or as 16-bit limbs.
 //
-// Replaces the TPU kernels rapidsnark_tpu/ops/fused.py:159 `add` and
-// fused.py:176 `scan_cols_packed` (both through `_binary`, the
-// pallas_call at fused.py:142).
+// Replaces the TPU kernels rapidsnark_tpu/ops/fused.py:159 `add`,
+// fused.py:176 `scan_cols_packed`, fused.py:219 `add_mixed_packed` and
+// fused.py:170 `add_mixed` (all through `_binary`, the pallas_call at
+// fused.py:142).
 //
 // What bounds them on the H100: 32-bit integer multiply-adds. One G1
 // mixed add is 14 Montgomery products of 8 x 8 limbs (~264 IMADs each:
@@ -20,6 +25,11 @@
 //     TPU's sequential grid covered 1-2 columns per launch; here one
 //     launch loops over the whole C = 256-column chunk) and writes every
 //     intermediate accumulator, which the MSM's prefix sums need.
+//   * add_mixed_packed / add_mixed: one thread per lane, 11 Fq products
+//     on G1 and 39 on G2 (13 Fq2 products by Karatsuba) against 160-448
+//     bytes moved, so they too are bound by the multiply-adds; `add_mixed`
+//     reads its affine operand as 16 limbs per coordinate and packs limb
+//     pairs in registers, the rest is shared.
 // Points are element-major packed words: a lane's point is L x 8
 // contiguous u32 (L = 3 for G1, 6 for G2: x0 x1 y0 y1 z0 z1), loaded as
 // 16-byte vectors.
@@ -104,22 +114,84 @@ __device__ __forceinline__ void g1_add_mixed_rx(P1& r, const P1& p,
   }
 }
 
+// 9 * t, canonical: three doublings and an add
+__device__ __forceinline__ void g1_mul_b3(u32 r[8], const u32 t[8]) {
+  u32 d[8];
+  f_dbl<FQ_ID>(d, t);
+  f_dbl<FQ_ID>(d, d);
+  f_dbl<FQ_ID>(d, d);
+  f_add<FQ_ID>(r, d, t);
+}
+
+// canonical projective + canonical affine (x2, y2), the strict law:
+// every output < p; (0,0) = infinity
+__device__ __forceinline__ void g1_add_mixed(P1& r, const P1& p,
+                                             const u32 x2[8],
+                                             const u32 y2[8]) {
+  u32 t0[8], t1[8], sa[8], sb[8], t3[8], t4[8], y3l[8];
+  f_mul<FQ_ID>(t0, p.x, x2);
+  f_mul<FQ_ID>(t1, p.y, y2);
+  f_add_lazy(sa, p.x, p.y);
+  f_add_lazy(sb, x2, y2);
+  f_mul<FQ_ID>(t3, sa, sb);
+  f_sub<FQ_ID>(t3, t3, t0);
+  f_sub<FQ_ID>(t3, t3, t1);
+  f_mul<FQ_ID>(t4, y2, p.z);
+  f_add<FQ_ID>(t4, t4, p.y);
+  f_mul<FQ_ID>(y3l, x2, p.z);
+  f_add<FQ_ID>(y3l, y3l, p.x);
+  u32 t0_3[8], t2b[8], y3b[8], z3[8], t1m[8];
+  f_dbl<FQ_ID>(t0_3, t0);
+  f_add<FQ_ID>(t0_3, t0_3, t0);
+  g1_mul_b3(t2b, p.z);
+  g1_mul_b3(y3b, y3l);
+  f_add<FQ_ID>(z3, t1, t2b);
+  f_sub<FQ_ID>(t1m, t1, t2b);
+  bool q_inf = is_zero8(x2) && is_zero8(y2);
+  u32 m1[8], m2[8], ox[8], oy[8], oz[8];
+  f_mul<FQ_ID>(m1, t4, y3b);
+  f_mul<FQ_ID>(m2, t3, t1m);
+  f_sub<FQ_ID>(ox, m2, m1);
+  f_mul<FQ_ID>(m1, y3b, t0_3);
+  f_mul<FQ_ID>(m2, t1m, z3);
+  f_add<FQ_ID>(oy, m2, m1);
+  f_mul<FQ_ID>(m1, t0_3, t3);
+  f_mul<FQ_ID>(m2, z3, t4);
+  f_add<FQ_ID>(oz, m2, m1);
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    r.x[i] = q_inf ? p.x[i] : ox[i];
+    r.y[i] = q_inf ? p.y[i] : oy[i];
+    r.z[i] = q_inf ? p.z[i] : oz[i];
+  }
+}
+
 // ---------------------------------------------------------------- G2 ------
 struct P2 {
   Fe2 x, y, z;
 };
 
-// b3 * t on the iso-twist, b3 = 3 + 27i: (3t0 - 27t1, 27t0 + 3t1)
+// b3 * t. ISO: the iso-twist's b3 = 3 + 27i as a shift-add chain,
+// (3t0 - 27t1, 27t0 + 3t1); else the zkey twist's b3 = 9/(9+i), a full
+// Fq2 product by the constant.
+template <bool ISO>
 __device__ __forceinline__ void g2_mul_b3(Fe2& r, const Fe2& t) {
-  Fe2 s3, s27, d;
-  f2_dbl(d, t);
-  f2_add(s3, d, t);
-  f2_dbl(d, s3);
-  f2_dbl(d, d);
-  f2_dbl(d, d);
-  f2_add(s27, d, s3);
-  f_sub<FQ_ID>(r.c0, s3.c0, s27.c1);
-  f_add<FQ_ID>(r.c1, s27.c0, s3.c1);
+  if constexpr (ISO) {
+    Fe2 s3, s27, d;
+    f2_dbl(d, t);
+    f2_add(s3, d, t);
+    f2_dbl(d, s3);
+    f2_dbl(d, d);
+    f2_dbl(d, d);
+    f2_add(s27, d, s3);
+    f_sub<FQ_ID>(r.c0, s3.c0, s27.c1);
+    f_add<FQ_ID>(r.c1, s27.c0, s3.c1);
+  } else {
+    Fe2 b3;
+    cp8(b3.c0, K_B3_G2[0]);
+    cp8(b3.c1, K_B3_G2[1]);
+    f2_mul(r, t, b3);
+  }
 }
 
 __device__ __forceinline__ void g2_add(P2& r, const P2& p, const P2& q) {
@@ -145,8 +217,8 @@ __device__ __forceinline__ void g2_add(P2& r, const P2& p, const P2& q) {
   Fe2 t0_3, t2b, y3b, z3, t1m;
   f2_dbl(t0_3, t0);
   f2_add(t0_3, t0_3, t0);
-  g2_mul_b3(t2b, t2);
-  g2_mul_b3(y3b, t5);
+  g2_mul_b3<true>(t2b, t2);
+  g2_mul_b3<true>(y3b, t5);
   f2_add(z3, t1, t2b);
   f2_sub(t1m, t1, t2b);
   Fe2 m1, m2;
@@ -161,6 +233,7 @@ __device__ __forceinline__ void g2_add(P2& r, const P2& p, const P2& q) {
   f2_add(r.z, m2, m1);
 }
 
+template <bool ISO>
 __device__ __forceinline__ void g2_add_mixed(P2& r, const P2& p,
                                              const Fe2& x2, const Fe2& y2) {
   Fe2 t0, t1, s, u, t3, t4, y3l;
@@ -178,8 +251,8 @@ __device__ __forceinline__ void g2_add_mixed(P2& r, const P2& p,
   Fe2 t0_3, t2b, y3b, z3, t1m;
   f2_dbl(t0_3, t0);
   f2_add(t0_3, t0_3, t0);
-  g2_mul_b3(t2b, p.z);
-  g2_mul_b3(y3b, y3l);
+  g2_mul_b3<ISO>(t2b, p.z);
+  g2_mul_b3<ISO>(y3b, y3l);
   f2_add(z3, t1, t2b);
   f2_sub(t1m, t1, t2b);
   bool q_inf = f2_is_zero(x2) && f2_is_zero(y2);
@@ -230,6 +303,24 @@ __device__ __forceinline__ void st_p2(u32* a, const P2& p) {
   st_f2(a, p.x);
   st_f2(a + 16, p.y);
   st_f2(a + 32, p.z);
+}
+
+// one affine coordinate of a lane's operand: 8 packed words, or 16 words
+// of one 16-bit limb each, packed in pairs here
+template <bool UNPACKED>
+__device__ __forceinline__ void ld_coord(u32 r[8], const u32* q, int k) {
+  if constexpr (UNPACKED) {
+    u32 lo[8], hi[8];
+    ld8(lo, q + k * 16);
+    ld8(hi, q + k * 16 + 8);
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      r[i] = lo[2 * i] | (lo[2 * i + 1] << 16);
+      r[4 + i] = hi[2 * i] | (hi[2 * i + 1] << 16);
+    }
+  } else {
+    ld8(r, q + k * 8);
+  }
 }
 
 // ------------------------------------------------------------ kernels ------
@@ -301,14 +392,66 @@ k_scan_g2(const u32* __restrict__ acc, const u32* __restrict__ cols,
       y2 = ny;
     }
     P2 r;
-    g2_add_mixed(r, a, x2, y2);
+    g2_add_mixed<true>(r, a, x2, y2);
     a = r;
     st_p2(out + e * 48, a);
   }
 }
 
+// p (n, 3, 8) canonical projective; q (n, 2, 8) packed or (n, 2, 16)
+// limbs, canonical affine; out (n, 3, 8) = p + q, canonical
+template <bool UNPACKED>
+__global__ void __launch_bounds__(128)
+k_add_mixed_g1(const u32* __restrict__ p, const u32* __restrict__ q,
+               u32* __restrict__ out, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  P1 a, r;
+  ld_p1(a, p + i * 24);
+  const u32* qi = q + i * (UNPACKED ? 32 : 16);
+  u32 x2[8], y2[8];
+  ld_coord<UNPACKED>(x2, qi, 0);
+  ld_coord<UNPACKED>(y2, qi, 1);
+  g1_add_mixed(r, a, x2, y2);
+  st_p1(out + i * 24, r);
+}
+
+// p (n, 6, 8); q (n, 4, 8) packed or (n, 4, 16) limbs; the zkey twist
+template <bool UNPACKED>
+__global__ void __launch_bounds__(128)
+k_add_mixed_g2(const u32* __restrict__ p, const u32* __restrict__ q,
+               u32* __restrict__ out, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  P2 a, r;
+  ld_p2(a, p + i * 48);
+  const u32* qi = q + i * (UNPACKED ? 64 : 32);
+  Fe2 x2, y2;
+  ld_coord<UNPACKED>(x2.c0, qi, 0);
+  ld_coord<UNPACKED>(x2.c1, qi, 1);
+  ld_coord<UNPACKED>(y2.c0, qi, 2);
+  ld_coord<UNPACKED>(y2.c1, qi, 3);
+  g2_add_mixed<false>(r, a, x2, y2);
+  st_p2(out + i * 48, r);
+}
+
 static inline unsigned nblocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
+}
+
+// curve: 0 = G1 (strict law), 1 = G2 on the zkey's twist
+template <bool UNPACKED>
+static int launch_add_mixed(int curve, const void* p, const void* q,
+                            void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (curve == 0)
+    k_add_mixed_g1<UNPACKED><<<nblocks(n, 128), 128, 0, s>>>(
+        (const u32*)p, (const u32*)q, (u32*)out, n);
+  else
+    k_add_mixed_g2<UNPACKED><<<nblocks(n, 128), 128, 0, s>>>(
+        (const u32*)p, (const u32*)q, (u32*)out, n);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -339,6 +482,16 @@ int rs_scan_cols(int curve, const void* acc, const void* cols,
     k_scan_g2<<<nblocks(n, 128), 128, 0, s>>>(
         (const u32*)acc, (const u32*)cols, (const int*)sign, (u32*)out, n, K);
   return (int)cudaGetLastError();
+}
+
+int rs_add_mixed_packed(int curve, const void* p, const void* q, void* out,
+                        long long n, void* stream) {
+  return launch_add_mixed<false>(curve, p, q, out, n, stream);
+}
+
+int rs_add_mixed(int curve, const void* p, const void* q, void* out,
+                 long long n, void* stream) {
+  return launch_add_mixed<true>(curve, p, q, out, n, stream);
 }
 
 }  // extern "C"

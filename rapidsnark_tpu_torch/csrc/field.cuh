@@ -40,6 +40,13 @@ __constant__ u32 K_C9[8] = {0x410d7ff7u, 0xf60647ceu, 0xd31bd011u,
                             0x2f3d6f4du, 0x3940c6d1u, 0x2943337eu,
                             0xa7e39857u, 0x1d9598e8u};
 
+// Montgomery form of b3 = 3b = 9/(9+i) of the zkey's G2 twist, (c0, c1)
+__constant__ u32 K_B3_G2[2][8] = {
+    {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+     0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
+    {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+     0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au}};
+
 // -p^-1 mod 2^32
 template <int F>
 __device__ __forceinline__ u32 n0inv() {

@@ -1,9 +1,11 @@
-// Radix-2 NTT kernels over BN254 Fr: `ntt_butterfly` (one layer) and
-// `ntt_fused_pass` (a run of consecutive layers in one pass).
+// Radix-2 NTT kernels over BN254 Fr: `ntt_butterfly` (one layer),
+// `ntt_fused_pass` (a run of consecutive layers in one pass) and
+// `ntt_tail` (the seven lowest layers of the per-stage configuration).
 //
 // Replaces the TPU kernels rapidsnark_tpu/ops/fused.py:233
-// `ntt_butterfly` (pallas_call at fused.py:278) and fused.py:371
-// `ntt_fused_pass` (pallas_call at fused.py:448).
+// `ntt_butterfly` (pallas_call at fused.py:278), fused.py:371
+// `ntt_fused_pass` (pallas_call at fused.py:448) and fused.py:458
+// `ntt_tail` (pallas_call at fused.py:524).
 //
 // What bounds them on the H100. A butterfly is one Montgomery product
 // (~264 IMADs: the a*b and m*p passes, low and high halves) per pair.
@@ -12,8 +14,15 @@
 // is bound by bytes, and a pass that keeps 3 or more layers on chip is
 // bound by the multiply-adds. The designs:
 //   * ntt_butterfly: one (lo, hi) pair per thread, DIF or DIT; bytes
-//     bound, used only below 2^12 points, where launch latency
-//     dominates anyway.
+//     bound. It carries every layer below 2^12 points, where launch
+//     latency dominates anyway, and the layers from bit 7 up of the
+//     per-stage configuration.
+//   * ntt_tail: the layers on bits 0-6, whose partners all lie inside
+//     a contiguous 128-element tile. A block holds 8 such tiles (32 KB)
+//     and the 127 twiddles of the seven layers (4 KB) in shared memory
+//     and does one product per butterfly, 7 layers per round trip:
+//     bound by the multiply-adds. (The TPU kernel multiplied every lane
+//     and selected; the canonical words are the same.)
 //   * ntt_fused_pass: one block loads a tile of 2^10 elements (32 KB of
 //     shared memory) holding every partner of `nbits` consecutive
 //     layers (bits lo_bit .. lo_bit+nbits-1) plus the contiguous low
@@ -136,6 +145,73 @@ k_fused_pass(const u32* __restrict__ x, u32* __restrict__ out,
   }
 }
 
+#define TAIL_BITS 7
+#define TAIL_ELEMS 1024  // elements a block holds: 8 tiles of 2^TAIL_BITS
+
+// x, out: (total, 8) with total a multiple of 128 (whole transforms of
+// 2^logn >= 128 points, back to back); tw: (2^(logn-1), 8). Layers on
+// bits 6..0 for DIF, 0..6 for DIT.
+__global__ void __launch_bounds__(NTT_THREADS)
+k_tail(const u32* __restrict__ x, u32* __restrict__ out,
+       const u32* __restrict__ tw, long long total, int logn, int dif) {
+  __shared__ uint4 tile[TAIL_ELEMS * 2];
+  __shared__ uint4 stw[(1 << TAIL_BITS) * 2];
+  const long long base = blockIdx.x * (long long)TAIL_ELEMS;
+  const long long left = total - base;
+  const int count = left < TAIL_ELEMS ? (int)left : TAIL_ELEMS;
+
+  // stw[h + j] = the layer with half size h = 2^s, position j < h:
+  // w^(j * N / 2h), the table row j << (logn - 1 - s)
+  for (int t = threadIdx.x + 1; t < (1 << TAIL_BITS); t += blockDim.x) {
+    const int s = 31 - __clz(t);
+    const long long j = t - (1 << s);
+    const uint4* src =
+        reinterpret_cast<const uint4*>(tw + (j << (logn - 1 - s)) * 8);
+    stw[2 * t] = src[0];
+    stw[2 * t + 1] = src[1];
+  }
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + (base + i) * 8);
+    tile[2 * i] = src[0];
+    tile[2 * i + 1] = src[1];
+  }
+  __syncthreads();
+
+  for (int st = 0; st < TAIL_BITS; st++) {
+    const int s = dif ? TAIL_BITS - 1 - st : st;
+    const int h = 1 << s;
+    for (int k = threadIdx.x; k < count / 2; k += blockDim.x) {
+      const int j = k & (h - 1);
+      const int ilo = ((k >> s) << (s + 1)) | j;
+      const int ihi = ilo | h;
+      u32 a[8], c[8], t[8];
+      uint4 q0 = tile[2 * ilo], q1 = tile[2 * ilo + 1];
+      a[0] = q0.x; a[1] = q0.y; a[2] = q0.z; a[3] = q0.w;
+      a[4] = q1.x; a[5] = q1.y; a[6] = q1.z; a[7] = q1.w;
+      q0 = tile[2 * ihi];
+      q1 = tile[2 * ihi + 1];
+      c[0] = q0.x; c[1] = q0.y; c[2] = q0.z; c[3] = q0.w;
+      c[4] = q1.x; c[5] = q1.y; c[6] = q1.z; c[7] = q1.w;
+      q0 = stw[2 * (h + j)];
+      q1 = stw[2 * (h + j) + 1];
+      t[0] = q0.x; t[1] = q0.y; t[2] = q0.z; t[3] = q0.w;
+      t[4] = q1.x; t[5] = q1.y; t[6] = q1.z; t[7] = q1.w;
+      bfly(a, c, t, dif != 0);
+      tile[2 * ilo] = make_uint4(a[0], a[1], a[2], a[3]);
+      tile[2 * ilo + 1] = make_uint4(a[4], a[5], a[6], a[7]);
+      tile[2 * ihi] = make_uint4(c[0], c[1], c[2], c[3]);
+      tile[2 * ihi + 1] = make_uint4(c[4], c[5], c[6], c[7]);
+    }
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    uint4* dst = reinterpret_cast<uint4*>(out + (base + i) * 8);
+    dst[0] = tile[2 * i];
+    dst[1] = tile[2 * i + 1];
+  }
+}
+
 extern "C" {
 
 int rs_ntt_butterfly(const void* lo, const void* hi, const void* tw,
@@ -160,6 +236,17 @@ int rs_ntt_fused_pass(const void* x, void* out, const void* tw,
   k_fused_pass<<<(unsigned)nblk, NTT_THREADS, 0, (cudaStream_t)stream>>>(
       (const u32*)x, (u32*)out, (const u32*)tw, (const u32*)pre_mul, logn,
       lo_bit, nbits, w, dif);
+  return (int)cudaGetLastError();
+}
+
+int rs_ntt_tail(const void* x, void* out, const void* tw, long long batch,
+                int logn, int dif, void* stream) {
+  if (logn < TAIL_BITS) return (int)cudaErrorInvalidValue;
+  const long long total = batch << logn;
+  if (total <= 0) return 0;
+  k_tail<<<(unsigned)((total + TAIL_ELEMS - 1) / TAIL_ELEMS), NTT_THREADS, 0,
+           (cudaStream_t)stream>>>((const u32*)x, (u32*)out, (const u32*)tw,
+                                   total, logn, dif);
   return (int)cudaGetLastError();
 }
 

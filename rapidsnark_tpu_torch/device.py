@@ -28,7 +28,8 @@ SOURCES = ("curve", "ntt")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("add", "scan_cols_packed", "ntt_fused_pass", "ntt_butterfly")
+KERNELS = ("add", "scan_cols_packed", "ntt_fused_pass", "ntt_butterfly",
+           "ntt_tail", "add_mixed_packed", "add_mixed")
 # launches of each kernel since the last reset_counts(); a wrapper adds
 # one where it launches its kernel and nowhere else
 counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -43,6 +44,9 @@ _ARGTYPES = {
     "rs_scan_cols": [_I, _VP, _VP, _VP, _VP, _LL, _I, _VP],
     "rs_ntt_butterfly": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _VP],
     "rs_ntt_fused_pass": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP],
+    "rs_ntt_tail": [_VP, _VP, _VP, _LL, _I, _I, _VP],
+    "rs_add_mixed_packed": [_I, _VP, _VP, _VP, _LL, _VP],
+    "rs_add_mixed": [_I, _VP, _VP, _VP, _LL, _VP],
 }
 
 

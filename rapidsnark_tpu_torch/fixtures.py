@@ -4,10 +4,11 @@ Writes the same bytes as `ref/setup.setup` + `io/zkey.write_zkey` for the
 same seed (the same formulas; affine points are unique), fast enough for
 2^20 constraints:
   * host scalars with Montgomery batch inversion (one pow per array);
-  * point tables by a 4-bit fixed-base ladder: 64 complete adds per
-    scalar through the port's `add` kernel (ops/fused.add) against a
-    host-built table of (d << 4w) * G lifted to projective z = 1 (G2 runs
-    on the iso-twist, the curve the G2 kernel serves, and maps back);
+  * point tables by a 4-bit fixed-base ladder: 64 strict mixed adds per
+    scalar against a host-built affine table of (d << 4w) * G. The G1
+    tables read it as packed words (ops/fused.add_mixed_packed); the G2
+    table reads it in limb form, as utils/points produces it
+    (ops/fused.add_mixed, on the zkey's own twist);
   * batch inversion of the z coordinates and affine packing as torch ops.
 
     python -m rapidsnark_tpu_torch.fixtures [log2_domain] [outdir]
@@ -27,12 +28,13 @@ import torch
 from . import device as D
 from .ops import field as FF
 from .ops import fused
-from .ops.curve import FQ2, G1P, G2P_ISO, pack_point
+from .ops.curve import FQ2, G1P, G2P, pack_point
 from .ops.field import FQ
-from .ops.msm import window_digits
+from .ops.msm import point_inf, window_digits
 from .ref import setup as S
 from .ref.curve import G1_GEN, G2_GEN
 from .ref.field import FR_CTX, FQ_CTX, P, R_FR, fr_w
+from .utils.points import g1_affine_to_mont_limbs, g2_affine_to_mont_limbs
 
 _WBITS = 4
 _NWIN = 64
@@ -80,49 +82,27 @@ def _window_table(gen, g2: bool):
     return entries
 
 
-def _mont(v: int) -> int:
-    return FQ_CTX.to_mont(v)
+def _limb_table(gen, g2: bool, dev) -> torch.Tensor:
+    """The window table as (1024, A, 16) int32 Montgomery limbs, one
+    16-bit limb per word; (0,0) = infinity."""
+    conv = g2_affine_to_mont_limbs if g2 else g1_affine_to_mont_limbs
+    arr = np.stack([conv(pt) for pt in _window_table(gen, g2)])
+    return _t32(arr, dev)
 
 
-def _proj_table_g1(dev) -> torch.Tensor:
-    """(1024, 3, 8) projective z = 1 lifts (infinity = (0, 1, 0))."""
-    one = FQ_CTX.r1
-    rows = []
-    for pt in _window_table(G1_GEN, False):
-        rows.append([0, one, 0] if pt is None
-                    else [_mont(pt[0]), _mont(pt[1]), one])
-    return _t32(_ints_to_words([v for r in rows for v in r])
-                .reshape(len(rows), 3, 8), dev)
+def _pack_limbs(t: torch.Tensor) -> torch.Tensor:
+    """(..., 16) limbs -> (..., 8) packed words."""
+    return t[..., 0::2] | (t[..., 1::2] << 16)
 
 
-def _proj_table_g2_iso(dev) -> torch.Tensor:
-    """(1024, 6, 8) iso-twist images of the G2 table, z = 1 lifts."""
-    one = FQ_CTX.r1
-    rows = []
-    for pt in _window_table(G2_GEN, True):
-        if pt is None:
-            rows.append([0, 0, one, 0, 0, 0])
-        else:
-            (x0, x1), (y0, y1) = pt
-            rows.append([_mont(x0), _mont(x1), _mont(y0), _mont(y1), one, 0])
-    t = _t32(_ints_to_words([v for r in rows for v in r])
-             .reshape(len(rows), 6, 8), dev)
-    x = (FF.unpack(t[:, 0]), FF.unpack(t[:, 1]))
-    y = (FF.unpack(t[:, 2]), FF.unpack(t[:, 3]))
-    n = (t.shape[0],)
-    x, y = FQ2.mul_many([(x, FQ2.const(G2P_ISO.iso["w2"], n, dev)),
-                         (y, FQ2.const(G2P_ISO.iso["w3"], n, dev))])
-    z = (FF.unpack(t[:, 4]), FF.unpack(t[:, 5]))
-    return pack_point((x, y, z))
-
-
-def _ladder(curve, table, words):
-    """sum_w T[w*16 + digit_w] for packed scalars words (b, 8)."""
+def _ladder(curve, mixed_add, table, words):
+    """sum_w T[w*16 + digit_w] for packed scalars words (b, 8), by 64
+    mixed adds from infinity."""
     digits = window_digits(words, _WBITS)                # (64, b)
-    acc = table[torch.zeros_like(digits[0])]             # infinity lanes
+    acc = point_inf(curve, (words.shape[0],), words.device)
     for w in range(_NWIN):
-        q = table[w * (1 << _WBITS) + digits[w]].contiguous()
-        acc = fused.add(curve, acc.contiguous(), q)
+        q = table[w * (1 << _WBITS) + digits[w]]
+        acc = mixed_add(curve, acc, q)
     return acc
 
 
@@ -152,12 +132,12 @@ def _batch_inv_dev(z):
 def fixed_base_g1(scalars, device) -> np.ndarray:
     """[k]G1 for plain ints -> (n, 2, 8) u32 Montgomery affine words
     ((0,0) = infinity): the zkey section payload."""
-    table = _proj_table_g1(device)
+    table = _pack_limbs(_limb_table(G1_GEN, False, device))
     out = []
     for lo in range(0, len(scalars), _CH):
         words = _t32(_ints_to_words(scalars[lo:lo + _CH]), device)
-        acc = _ladder(G1P, table, words)
-        x, y, z = (FQ.canon(FF.unpack(acc[:, k])) for k in range(3))
+        acc = _ladder(G1P, fused.add_mixed_packed, table, words)
+        x, y, z = (FF.unpack(acc[:, k]) for k in range(3))
         inf = FQ.is_zero(z)
         zi = _batch_inv_dev(FQ.select(inf, FQ.one_mont(z.shape[1:],
                                                        z.device), z))
@@ -170,16 +150,14 @@ def fixed_base_g1(scalars, device) -> np.ndarray:
 
 def fixed_base_g2(scalars, device) -> np.ndarray:
     """[k]G2 -> (n, 4, 8) u32 words (x.c0 x.c1 y.c0 y.c1)."""
-    table = _proj_table_g2_iso(device)
+    table = _limb_table(G2_GEN, True, device)
     out = []
     for lo in range(0, len(scalars), _CH):
         words = _t32(_ints_to_words(scalars[lo:lo + _CH]), device)
-        acc = _ladder(G2P_ISO, table, words)
+        acc = _ladder(G2P, fused.add_mixed, table, words)
         el = [FF.unpack(acc[:, k]) for k in range(6)]
         x, y, z = (el[0], el[1]), (el[2], el[3]), (el[4], el[5])
         b = (x[0].shape[1],)
-        x, y = FQ2.mul_many([(x, FQ2.const(G2P_ISO.iso["w2i"], b, device)),
-                             (y, FQ2.const(G2P_ISO.iso["w3i"], b, device))])
         inf = FQ2.is_zero(z)
         m0, m1 = FQ.mul_many([(z[0], z[0]), (z[1], z[1])])
         norm = FQ.select(inf, FQ.one_mont(b, device), FQ.add(m0, m1))

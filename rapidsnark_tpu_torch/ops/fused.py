@@ -1,4 +1,4 @@
-"""The four kernels of the prove path, each beside its plain version.
+"""The port's seven kernels, each beside its plain version.
 
 Counterpart of `rapidsnark_tpu/ops/fused.py` (Pallas kernels for the
 TPU). Each wrapper takes packed element-major int32 tensors (field
@@ -11,6 +11,9 @@ stream and counts the launch, or raises. There is no fallback.
   scan_cols_packed  K sequential signed mixed adds, every accumulator out
   ntt_butterfly     one radix-2 layer over split (lo, hi) halves
   ntt_fused_pass    consecutive radix-2 layers of a transform in one pass
+  ntt_tail          the layers on bits 0-6 of the per-stage NTT path
+  add_mixed_packed  strict projective + packed affine add (G1, G2 twist)
+  add_mixed         the same add, the affine operand as 16-bit limbs
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from .. import device as D
 from . import field as FF
-from .curve import (G1P, G2P_ISO, is_g2, pack_point, relaxed_for,
+from .curve import (G1P, G2P, G2P_ISO, is_g2, pack_point, relaxed_for,
                     unpack_point)
 from .field import FR
 
@@ -209,3 +212,115 @@ def ntt_fused_pass(x: torch.Tensor, tw: torch.Tensor, lo_bit: int,
     D.check(rc, "ntt_fused_pass")
     D.count("ntt_fused_pass")
     return out
+
+
+# ---------------------------------------------------------------- ntt_tail --
+TAIL_BITS = 7  # csrc/ntt.cu: the layers with half size below 128
+
+
+def ntt_tail_plain(x, tw, dif: bool):
+    bsz, n = x.shape[0], x.shape[1]
+    tile = 1 << TAIL_BITS
+    v = FF.unpack(x).reshape(16, bsz, n // tile, tile)
+    bits = range(TAIL_BITS)
+    for bit in (reversed(bits) if dif else bits):
+        h = 1 << bit
+        u = v.reshape(16, bsz, n // tile, tile // (2 * h), 2, h)
+        twl = FF.unpack(stage_twiddles(tw, n, bit))[:, None, None, None, :]
+        a, b = _bf(u[..., 0, :], u[..., 1, :], twl, dif)
+        v = torch.stack([a, b], dim=-2).reshape(16, bsz, n // tile, tile)
+    return FF.pack(v.reshape(16, bsz, n))
+
+
+def ntt_tail(x: torch.Tensor, tw: torch.Tensor, dif: bool) -> torch.Tensor:
+    """The layers on bits 0-6 (half sizes 64..1 descending for DIF, 1..64
+    ascending for DIT) of a radix-2 transform in one launch: every
+    partner lies inside a contiguous 128-element tile.
+
+    x: (B, n, 8) packed Fr, n >= 128; tw: (n/2, 8) twiddles of the
+    direction (the kernel reads the 127 rows those layers use)."""
+    n = x.shape[1]
+    logn = n.bit_length() - 1
+    if n != 1 << logn or logn < TAIL_BITS:
+        raise ValueError(f"ntt_tail: n = {n} is not a power of two >= 128")
+    if x.device.type == "cpu":
+        return ntt_tail_plain(x, tw, dif)
+    D.require(x, "ntt_tail.x", tail=(n, 8))
+    D.require(tw, "ntt_tail.tw", tail=(n // 2, 8))
+    out = torch.empty_like(x)
+    rc = D.lib("ntt").rs_ntt_tail(x.data_ptr(), out.data_ptr(),
+                                  tw.data_ptr(), x.shape[0], logn, int(dif),
+                                  D.stream(x))
+    D.check(rc, "ntt_tail")
+    D.count("ntt_tail")
+    return out
+
+
+# ------------------------------------------- add_mixed_packed, add_mixed ----
+
+def _mixed_curve_id(curve) -> int:
+    """Kernel variant of the strict mixed add: 0 = G1, 1 = G2 on the
+    zkey's twist."""
+    if curve is G1P:
+        return 0
+    if curve is G2P:
+        return 1
+    raise ValueError("the strict mixed adders serve G1 and the G2 twist only")
+
+
+def add_mixed_packed_plain(curve, p, q):
+    return pack_point(curve.add_mixed(unpack_point(curve, p),
+                                      unpack_point(curve, q)))
+
+
+def unpack_limb_point(curve, q: torch.Tensor):
+    """(*b, A, 16) int32, one 16-bit limb per word -> affine pair of limb
+    elements."""
+    els = [q[..., i, :].movedim(-1, 0).to(torch.int64)
+           for i in range(q.shape[-2])]
+    if is_g2(curve):
+        els = [(els[i], els[i + 1]) for i in range(0, len(els), 2)]
+    return tuple(els)
+
+
+def add_mixed_plain(curve, p, q):
+    return pack_point(curve.add_mixed(unpack_point(curve, p),
+                                      unpack_limb_point(curve, q)))
+
+
+def _launch_add_mixed(name: str, curve, p, q, limbs: int):
+    cid = _mixed_curve_id(curve)
+    L = _coords(curve)
+    A = L - L // 3
+    D.require(p, f"{name}.p", tail=(L, 8))
+    D.require(q, f"{name}.q", tail=(A, limbs))
+    if p.shape[:-2] != q.shape[:-2]:
+        raise ValueError(f"{name}: batch shapes differ {tuple(p.shape)} "
+                         f"{tuple(q.shape)}")
+    out = torch.empty_like(p)
+    n = p.numel() // (L * 8)
+    rc = getattr(D.lib("curve"), "rs_" + name)(
+        cid, p.data_ptr(), q.data_ptr(), out.data_ptr(), n, D.stream(p))
+    D.check(rc, name)
+    D.count(name)
+    return out
+
+
+def add_mixed_packed(curve, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Strict (canonical) complete add of a projective and an affine
+    point, on G1 or on G2's original twist.
+
+    p: (*b, L, 8) canonical projective; q: (*b, A, 8) canonical packed
+    affine, (0,0) = infinity. Returns (*b, L, 8), canonical."""
+    if p.device.type == "cpu":
+        return add_mixed_packed_plain(curve, p, q)
+    return _launch_add_mixed("add_mixed_packed", curve, p, q, 8)
+
+
+def add_mixed(curve, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """add_mixed_packed with the affine operand in limb form: q is
+    (*b, A, 16) int32, one 16-bit limb per word (the kernel packs limb
+    pairs in registers)."""
+    if p.device.type == "cpu":
+        return add_mixed_plain(curve, p, q)
+    return _launch_add_mixed("add_mixed", curve, p, q, 16)

@@ -1,8 +1,8 @@
 """Pippenger multi-scalar multiplication by sort + prefix scan (torch).
 
-Counterpart of `rapidsnark_tpu/ops/msm.py` on its unsegmented path. Per
-c-bit window: signed digit recode, one stable sort by digit, a gather of
-the sorted points, the all-positions prefix sums of the sorted points
+Counterpart of `rapidsnark_tpu/ops/msm.py`. Per c-bit window: signed
+digit recode, one stable sort by digit, a gather of the sorted points,
+the all-positions prefix sums of the sorted points
 (ops/fused.scan_cols_packed over C = 256 columns, then a two-level
 prefix of the chunk totals with ops/fused.add), and the telescoped window
 total sum_j j*B_j = sum_{j<M} (A_M - A_j) with A_j the prefix sum at the
@@ -10,7 +10,9 @@ bucket-j boundary (one boundary gather-add, one wide difference, one
 halving tree). Windows ride a batch axis in groups of G; scalars split
 by GLV into 128-bit halves over the virtual table [P, phi(P)]; the G2
 scan runs on the cheap-b3 iso-twist and the window totals are mapped
-back.
+back. With `segment` the point axis is cut into slices: each slice
+yields one point per window, summed across slices with ops/fused.add,
+so the scan's working set is a slice's, not the table's.
 
 Points are packed element-major int32 tensors: affine tables
 (*batch, n, A, 8) with A = 2 (G1) / 4 (G2) and (0,0) = infinity, the
@@ -280,15 +282,74 @@ def _window_group(curve, pts, digits, n: int, c: int):
     return _tree_total(curve, diff, M)
 
 
-def _phi_extend(curve, pts):
-    """(*b, n, A, 8) table -> (*b, 2n, A, 8) [P, phi(P)], phi(x, y) =
-    (beta*x, y); (0,0) is fixed by phi."""
+def _phi(curve, pts):
+    """phi(x, y) = (beta*x, y) on a packed affine table (*b, n, A, 8);
+    (0,0) is fixed by phi."""
     beta = GLV.params_for(curve).beta_mont
     nx = 2 if is_g2(curve) else 1
     x = FF.unpack(pts[..., :nx, :])
     xphi = FF.pack(FQ.mul(x, FQ.const(beta, tuple(x.shape[1:]), x.device)))
-    ext = torch.cat([xphi, pts[..., nx:, :]], dim=-2)
-    return torch.cat([pts, ext], dim=-3)
+    return torch.cat([xphi, pts[..., nx:, :]], dim=-2)
+
+
+def _table_slice(curve, pts, off: int, size: int):
+    """Entries off .. off+size of the virtual GLV table [P, phi(P)]
+    (*b, 2n, A, 8) of a table (*b, n, A, 8): the lower part is a view,
+    the upper part the phi image of that part only."""
+    npts = pts.shape[-3]
+    lo_n = max(0, min(npts, off + size) - off)
+    parts = []
+    if lo_n:
+        parts.append(pts[..., off:off + lo_n, :, :])
+    if lo_n < size:
+        u0 = max(off, npts) - npts
+        parts.append(_phi(curve, pts[..., u0:u0 + size - lo_n, :, :]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-3)
+
+
+def _segmented_groups(sc, pts, scalars, c: int, G_: int, nwin: int,
+                      segment: int):
+    """Window totals by slices of `segment` entries of the virtual
+    [k1 | k2] axis: entry `off` maps to table point off % npts, and every
+    slice adds one point per window into the running totals. Returns the
+    list of per-group totals (G_, *b, L, 8)."""
+    npts = scalars.shape[-2]
+    n = 2 * npts
+    if n % segment or segment % _CHUNK:
+        raise ValueError(f"msm: segment {segment} must divide {n} entries "
+                         f"and be a multiple of {_CHUNK}")
+    bshape = tuple(scalars.shape[:-2])
+    params = GLV.params_for(sc)
+    # when segment divides npts no slice straddles the k1/k2 boundary and
+    # each slice's scalars are decomposed on their own (the decomposed
+    # stack of the whole axis never exists); otherwise decompose once
+    # and slice the halves
+    per_slice = npts % segment == 0
+    if not per_slice:
+        s9, neg = GLV.decompose(params, scalars)
+        carries = signed_digit_carries(s9, c, GLV.GLV_BITS, lead=True)
+    ngroups = nwin // G_
+    accs = [point_inf(sc, (G_,) + bshape, scalars.device)
+            for _ in range(ngroups)]
+    for off in range(0, n, segment):
+        pseg = _table_slice(sc, pts, off, segment)
+        if per_slice:
+            offp = off % npts
+            d2, n2 = GLV.decompose(params,
+                                   scalars[..., offp:offp + segment, :])
+            start = segment if off >= npts else 0
+            s9seg = d2[..., start:start + segment]
+            nseg = n2[..., start:start + segment]
+            cseg = signed_digit_carries(s9seg, c, GLV.GLV_BITS, lead=True)
+        else:
+            s9seg = s9[..., off:off + segment]
+            cseg = carries[..., off:off + segment]
+            nseg = neg[..., off:off + segment]
+        for ig in range(ngroups):
+            dseg = group_signed_digits(s9seg, cseg, ig * G_, G_, c, lead=True)
+            t = _window_group(sc, pseg, dseg ^ nseg[None], segment, c)
+            accs[ig] = fused.add(sc, accs[ig], t.contiguous())
+    return accs
 
 
 def msm(curve, pts, scalars, c: int, window_group: int = 5,
@@ -299,31 +360,37 @@ def msm(curve, pts, scalars, c: int, window_group: int = 5,
     (on G2 already rescaled onto the iso-twist, g2_rescale_packed);
     scalars: (*batch, n, 8) packed plain integers. Returns the window
     totals as packed projective points (W, *batch, L, 8) on `curve`,
-    for the Horner combine on the host (combine=False)."""
-    if segment:
-        raise NotImplementedError(
-            "segmented MSM (2^22+ points) is a later slice of the port")
-    if row_slice is not None:
-        raise NotImplementedError(
-            "row_slice (the segmented path's lazy rows) is a later slice")
+    for the Horner combine on the host (combine=False).
+
+    `segment` (a multiple of 256 dividing 2n, 0 = off) runs the scan in
+    2n/segment slices of the GLV entry axis, which bounds the scan's
+    working set (the all-positions prefix is 96-192 bytes per entry per
+    window of a group). `row_slice=(row_lo, nrows)` selects nrows
+    leading-axis rows of a bigger scalar stack (a view, never a copy)."""
     if combine:
         raise NotImplementedError(
             "the device window combine is not ported; combine on the host")
+    if row_slice is not None:
+        row_lo, nrows = row_slice
+        scalars = scalars[row_lo:row_lo + nrows]
     bshape = tuple(scalars.shape[:-2])
     n = 2 * scalars.shape[-2]
-    s9, neg = GLV.decompose(GLV.params_for(curve), scalars)
-    carries = signed_digit_carries(s9, c, GLV.GLV_BITS, lead=True)
     nwin = -(-GLV.GLV_BITS // c)
     G_ = min(window_group, nwin)
     while nwin % G_:
         G_ -= 1
     iso = getattr(curve, "iso_scan", None)
     sc = iso or curve
-    p2 = _phi_extend(sc, pts)
-    groups = []
-    for ig in range(nwin // G_):
-        dg = group_signed_digits(s9, carries, ig * G_, G_, c, lead=True)
-        groups.append(_window_group(sc, p2, dg ^ neg[None], n, c))
+    if segment and segment < n:
+        groups = _segmented_groups(sc, pts, scalars, c, G_, nwin, segment)
+    else:
+        s9, neg = GLV.decompose(GLV.params_for(curve), scalars)
+        carries = signed_digit_carries(s9, c, GLV.GLV_BITS, lead=True)
+        p2 = _table_slice(sc, pts, 0, n)
+        groups = []
+        for ig in range(nwin // G_):
+            dg = group_signed_digits(s9, carries, ig * G_, G_, c, lead=True)
+            groups.append(_window_group(sc, p2, dg ^ neg[None], n, c))
     wpts = torch.cat(groups, dim=0)                # (W, *b, L, 8)
     if iso is not None:
         x, y, z = unpack_point(curve, wpts)

@@ -8,7 +8,10 @@ are packed element-major: (*batch, N, 8) int32.
 Dispatch follows the JAX package: at N >= 2^12 a transform runs as
 fused passes (ops/fused.ntt_fused_pass; the bottom pass carries the 10
 lowest layers, every further pass 5 more), below that one
-ops/fused.ntt_butterfly layer at a time. The odd-coset map is the
+ops/fused.ntt_butterfly layer at a time. With RSTPU_NTT_FUSE=0
+(config.ntt_fuse) a transform of 2^12 points or more runs per stage
+instead: ops/fused.ntt_tail for the layers on bits 0-6 and one
+ntt_butterfly layer for every bit above. The odd-coset map is the
 gather-free DIF -> (1/N * eta^k at bit-reversed positions) -> DIT form,
 with the multiply folded into the DIT's first pass.
 """
@@ -20,12 +23,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import config
 from ..ref.field import R_FR, fr_w
 from . import field as FF
 from . import fused
 from .field import FR
 
-FUSE_MIN_BITS = 12      # fused passes from N = 2^12 (JAX: _CB + 3)
+TAIL_MIN_BITS = 12      # the per-stage path has a tail from N = 2^12
 BOTTOM_BITS = 10        # layers in the first (contiguous) pass
 UPPER_BITS = 5          # layers per further pass
 
@@ -102,8 +106,9 @@ def _passes(logn: int):
     return out
 
 
-def _fuse(n: int) -> bool:
-    return n >= (1 << FUSE_MIN_BITS)
+def _tail_stages(n: int) -> int:
+    """Layers of the per-stage path that ops/fused.ntt_tail carries."""
+    return fused.TAIL_BITS if n >= (1 << TAIL_MIN_BITS) else 0
 
 
 def _apply_stage(x, tw, bit: int, dif: bool):
@@ -129,14 +134,17 @@ def _stages_dit(x, tw, pre_mul=None):
     first."""
     n = x.shape[1]
     logn = n.bit_length() - 1
-    if _fuse(n):
+    if config.ntt_fuse(n):
         for i, (lo, k) in enumerate(_passes(logn)):
             x = fused.ntt_fused_pass(x, tw, lo, k, dif=False,
                                      pre_mul=pre_mul if i == 0 else None)
         return x
     if pre_mul is not None:
         x = _mul_rows(x, pre_mul)
-    for s in range(logn):
+    k0 = _tail_stages(n)
+    if k0:
+        x = fused.ntt_tail(x, tw, dif=False)
+    for s in range(k0, logn):
         x = _apply_stage(x, tw, s, dif=False)
     return x
 
@@ -146,12 +154,15 @@ def _stages_dif(x, tw):
     unscaled inverse DFT."""
     n = x.shape[1]
     logn = n.bit_length() - 1
-    if _fuse(n):
+    if config.ntt_fuse(n):
         for lo, k in reversed(_passes(logn)):
             x = fused.ntt_fused_pass(x, tw, lo, k, dif=True)
         return x
-    for s in reversed(range(logn)):
+    k0 = _tail_stages(n)
+    for s in reversed(range(k0, logn)):
         x = _apply_stage(x, tw, s, dif=True)
+    if k0:
+        x = fused.ntt_tail(x, tw, dif=True)
     return x
 
 

@@ -11,13 +11,16 @@ Counterpart of `rapidsnark_tpu/prover.py` on its single-device path:
   combine + assembly (groth16.cpp:209-246)      exact host int math
 Given the same (r, s) the proof is byte-identical to the reference's.
 
-The card holds a 2^20 prove whole, so none of the JAX package's memory
-workarounds (segmenting, blocked G1 tables, stage paging, layout pinning,
-chunked maps) is carried over.
+Past 2^21 points the MSMs run segmented (config.msm_segment, or the
+`segment` argument): the scan's working set is then a slice's. The card
+holds the tables and the front of a 2^22 prove whole, so none of the JAX
+package's other memory workarounds (blocked G1 tables, stage paging,
+layout pinning, chunked maps) is carried over.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional, Tuple
 
@@ -89,9 +92,12 @@ class Prover:
     tables and the host-binned coefficient slots."""
 
     def __init__(self, zkey: ZKey, window_bits: Optional[int] = None,
-                 device=None):
+                 window_group: Optional[int] = None,
+                 segment: Optional[int] = None, device=None):
+        """The arguments win over the environment knobs (config.py)."""
         self.device = D.resolve(device)
         dev = self.device
+        self.setup_phases: Dict[str, float] = {}
         self.n_vars = zkey.n_vars
         self.n_public = zkey.n_public
         self.domain = zkey.domain_size
@@ -100,22 +106,27 @@ class Prover:
         if zkey.r != R_FR:
             raise ValueError("zkey curve is not bn128")
         self.nmax = MSM.pad_len(max(self.domain, self.n_vars))
-        if config.msm_segment(self.nmax):
-            raise NotImplementedError(
-                "segmented MSM (domains past 2^21) is a later slice of the "
-                "port")
+        self.segment = (segment if segment is not None
+                        else config.msm_segment(self.nmax))
+        if self.segment and self.nmax % self.segment:
+            self.segment = 0  # odd sizes: fall back to the whole-axis scan
         self.c_bits = (window_bits or config.window_bits()
-                       or MSM.best_window_bits(self.nmax))
-        self.window_group = config.window_group()
+                       or MSM.best_window_bits(self.nmax, self.segment))
+        self.window_group = window_group or config.window_group()
 
         # point tables: packed affine (rows, nmax, A, 8), the zkey layout
-        g1 = np.stack([_pad_points(zkey.points_h, self.nmax),
-                       _pad_points(zkey.points_a, self.nmax),
-                       _pad_points(zkey.points_b1, self.nmax),
-                       _pad_points(zkey.points_c, self.nmax)])
-        self.pts_g1 = _i32(g1).to(dev)                      # (4, nmax, 2, 8)
-        b2 = _pad_points(zkey.points_b2, self.nmax)[None]   # (1, nmax, 4, 8)
-        self.pts_g2 = MSM.g2_rescale_packed(_i32(b2).to(dev))
+        with self._setup_phase("table_upload"):
+            g1 = np.stack([_pad_points(zkey.points_h, self.nmax),
+                           _pad_points(zkey.points_a, self.nmax),
+                           _pad_points(zkey.points_b1, self.nmax),
+                           _pad_points(zkey.points_c, self.nmax)])
+            self.pts_g1 = _i32(g1).to(dev)                  # (4, nmax, 2, 8)
+            del g1
+            b2 = _pad_points(zkey.points_b2, self.nmax)[None]
+            b2 = _i32(b2).to(dev)                           # (1, nmax, 4, 8)
+        with self._setup_phase("g2_rescale"):
+            self.pts_g2 = MSM.g2_rescale_packed(b2)
+            del b2
 
         self.ref_vk = {
             "alpha1": _ref_g1(zkey.vk_alpha1),
@@ -125,10 +136,29 @@ class Prover:
             "delta2": _ref_g2(zkey.vk_delta2),
         }
 
-        # coefficient records binned by target row (a|b, constraint) into
-        # K slots per row on the host: the device accumulation is a
-        # gather, one mul and a slot sum; denser rows spill to an
-        # index_add pass (two-level past the 2^15-term carry headroom)
+        with self._setup_phase("coef_binning"):
+            self._bin_coefficients(zkey)
+        with self._setup_phase("ntt_plan"):
+            plan = NTTPlan(self.power)
+            self.ntt_arrays = plan.tensors(
+                dev, keep=("fwd_tw", "inv_tw", "coset_ninv_br"))
+        self.last_phases: Dict[str, float] = {}
+        self.released = False
+
+    @contextlib.contextmanager
+    def _setup_phase(self, name: str):
+        """Time one part of the set-up, its card work included, into
+        setup_phases and the trace log."""
+        with phase(name, self.setup_phases):
+            yield
+            self._sync()
+
+    def _bin_coefficients(self, zkey: ZKey) -> None:
+        """Bin the coefficient records by target row (a|b, constraint)
+        into K slots per row on the host: the device accumulation is a
+        gather, one mul and a slot sum; denser rows spill to an index_add
+        pass (two-level past the 2^15-term carry headroom)."""
+        dev = self.device
         n = self.domain
         seg = zkey.coef_m.astype(np.int64) * n + zkey.coef_c.astype(np.int64)
         ncoefs = seg.shape[0]
@@ -175,12 +205,6 @@ class Prover:
                 self.acc1_segments = int(uniq.shape[0])
                 self.acc2_seg = torch.from_numpy(
                     (uniq // nsub).astype(np.int64)).to(dev)
-
-        plan = NTTPlan(self.power)
-        self.ntt_arrays = plan.tensors(
-            dev, keep=("fwd_tw", "inv_tw", "coset_ninv_br"))
-        self.last_phases: Dict[str, float] = {}
-        self.released = False
 
     def tables(self) -> dict:
         if self.released:
@@ -252,9 +276,9 @@ class Prover:
         h_row, wit_row, c_row = rows[0], rows[1], rows[2]
         g1_sc = torch.stack([h_row, wit_row, wit_row, c_row])
         g1w = MSM.msm(G1P, tables["pts_g1"], g1_sc, self.c_bits,
-                      self.window_group)
+                      self.window_group, segment=self.segment)
         g2w = MSM.msm(G2P, tables["pts_g2"], wit_row[None], self.c_bits,
-                      self.window_group)
+                      self.window_group, segment=self.segment)
         return g1w, g2w
 
     def release(self) -> None:

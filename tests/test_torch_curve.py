@@ -170,3 +170,56 @@ def test_plain_scan_matches_jax_fused(curve):
     assert got.shape == (K, N, 6 if g2 else 3, 8)
     for k in range(K):
         assert torch.equal(got[k], _packed(_map(want[k], np.asarray)))
+
+
+def _mixed_case(g2, n=8, seed=21):
+    """Projective p = a + b (z != 1) and affine q with a doubling lane
+    (q = p), a cancellation lane (q = -p), q = infinity and p = infinity."""
+    rng = random.Random(seed)
+    group, gen = (refc.G2, refc.G2_GEN) if g2 else (refc.G1, refc.G1_GEN)
+    a = [group.mul(gen, rng.randrange(1, R_FR)) for _ in range(n)]
+    b = [group.mul(gen, rng.randrange(1, R_FR)) for _ in range(n)]
+    a[3] = b[3] = None
+    ps = [group.add(x, y) for x, y in zip(a, b)]
+    qs = [group.mul(gen, rng.randrange(1, R_FR)) for _ in range(n)]
+    qs[0] = ps[0]
+    qs[1] = group.neg(ps[1])
+    qs[2] = None
+    return group, a, b, ps, qs
+
+
+@pytest.mark.parametrize("form", ["packed", "limbs"])
+@pytest.mark.parametrize("curve", ["G1P", "G2P"])
+def test_plain_add_mixed_matches_jax_fused(curve, form):
+    """add_mixed_packed / add_mixed plain versions vs the JAX package's
+    fused.add_mixed_packed / add_mixed (their plain XLA reference on the
+    CPU): the strict law is canonical, so the words are exact; and the
+    sums are group-equal to the oracle after affine normalization."""
+    from rapidsnark_tpu.ops.msm import pack_limb_rows
+    from rapidsnark_tpu_torch import convert
+    g2 = curve != "G1P"
+    tcurve, jcurve = getattr(TC, curve), getattr(JC, curve)
+    group, a, b, ps, qs = _mixed_case(g2)
+    pa, pb = _to_affine_port(tcurve, a, g2), _to_affine_port(tcurve, b, g2)
+    p = tcurve.add(tcurve.from_affine(*pa), tcurve.from_affine(*pb))
+    q = _to_affine_port(tcurve, qs, g2)
+    jp = _map(p, lambda t: jnp.asarray(t.numpy().astype(np.uint32)))
+    jq = _map(q, lambda t: jnp.asarray(t.numpy().astype(np.uint32)))
+    if form == "packed":
+        want = JFU.add_mixed_packed(jcurve, jp, _map(jq, pack_limb_rows))
+        got = TFU.add_mixed_packed(tcurve, TC.pack_point(p), TC.pack_point(q))
+    else:
+        want = JFU.add_mixed(jcurve, jp, jq)
+        tq = convert.limb_affine_from_jax([np.asarray(e) for e in _leaves(jq)])
+        assert tq.shape == (len(ps), 4 if g2 else 2, 16)
+        got = TFU.add_mixed(tcurve, TC.pack_point(p), tq)
+    assert torch.equal(got, _packed(_map(want, np.asarray)))
+    for g, x, y in zip(_host(TC.unpack_point(tcurve, got), g2), ps, qs):
+        e = group.add(x, y)
+        assert (g is None and e is None) or group.eq(g, e)
+
+
+def test_mixed_adders_refuse_other_curves():
+    with pytest.raises(ValueError, match="strict mixed adders"):
+        TFU._mixed_curve_id(TC.G2P_ISO)
+    assert TFU._mixed_curve_id(TC.G1P) == 0 and TFU._mixed_curve_id(TC.G2P) == 1

@@ -1,4 +1,4 @@
-"""The four CUDA kernels of rapidsnark_tpu_torch against their plain
+"""The seven CUDA kernels of rapidsnark_tpu_torch against their plain
 PyTorch versions, on the card (marker `cuda`; each test skips when no
 card is present). This file imports no JAX, so it runs on a machine
 without it:
@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from rapidsnark_tpu_torch.ops import fused as TFU
-from rapidsnark_tpu_torch.ops.curve import G1P, G2P_ISO
+from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO
 from rapidsnark_tpu_torch.ref.field import P, R_FR
 
 CURVES = {"G1P": (G1P, 3), "G2P_ISO": (G2P_ISO, 6)}
+MIXED_CURVES = {"G1P": (G1P, 3), "G2P": (G2P, 6)}
 
 
 def _dev():
@@ -93,6 +94,72 @@ def test_fused_pass_kernel_matches_plain(power, lo_bit, nbits, dif, pre):
     want = TFU.ntt_fused_pass_plain(x, tw, lo_bit, nbits, dif, pm)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["packed", "limbs"])
+@pytest.mark.parametrize("curve", sorted(MIXED_CURVES))
+@pytest.mark.parametrize("n", [1, 1000])
+def test_add_mixed_kernels_match_plain(curve, form, n):
+    """Random canonical operands with (0,0) lanes, and lanes where the
+    affine operand is +-(the projective one, z = 1)."""
+    dev = _dev()
+    c, L = MIXED_CURVES[curve]
+    A = L - L // 3
+    p, q = _fe(P, (n, L), 12, dev), _fe(P, (n, A), 13, dev)
+    q[::7] = 0                                         # infinity lanes
+    one = torch.tensor(np.array(
+        [(((1 << 256) % P) >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+        dtype=np.uint32).view(np.int32), device=dev)
+    p[2::5, A:] = 0
+    p[2::5, A] = one                                   # z = 1
+    p[2::5, :A] = q[2::5]                              # q = p (doubling)
+    if form == "limbs":
+        qq = q.to(torch.int64) & 0xFFFFFFFF
+        ql = torch.stack([qq & 0xFFFF, qq >> 16], dim=-1).reshape(
+            n, A, 16).to(torch.int32).contiguous()
+        got = TFU.add_mixed(c, p, ql)
+        want = TFU.add_mixed_plain(c, p, ql)
+    else:
+        got = TFU.add_mixed_packed(c, p, q)
+        want = TFU.add_mixed_packed_plain(c, p, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dif", [False, True])
+@pytest.mark.parametrize("power,batch", [(7, 1), (7, 3), (12, 2), (14, 3)])
+def test_tail_kernel_matches_plain_and_fused_pass(power, batch, dif):
+    dev = _dev()
+    x = _fe(R_FR, (batch, 1 << power), 14, dev)
+    tw = _fe(R_FR, (1 << (power - 1),), 15, dev)
+    got = TFU.ntt_tail(x, tw, dif)
+    want = TFU.ntt_tail_plain(x, tw, dif)
+    same = TFU.ntt_fused_pass(x, tw, 0, 7, dif)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, same)
+
+
+@pytest.mark.cuda
+def test_segmented_msm_on_card_matches_cpu():
+    """msm(segment=, row_slice=) through the kernels on the card gives
+    the words of the plain path on the CPU (stable sorts and word-exact
+    kernels on both sides), with one scan launch per slice."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    n, c, G = 512, 8, 16
+    pts = _fe(P, (2, n, 2), 16, "cpu")
+    pts[:, ::9] = 0                                    # infinity entries
+    stack = _fe(1 << 253, (4, n), 17, "cpu")
+    want = TM.msm(G1P, pts, stack, c, G, segment=256, row_slice=(1, 2))
+    D.reset_counts()
+    got = TM.msm(G1P, pts.to(dev), stack.to(dev), c, G, segment=256,
+                 row_slice=(1, 2))
+    torch.cuda.synchronize()
+    assert D.counts["scan_cols_packed"] == 4
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

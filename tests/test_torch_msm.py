@@ -162,9 +162,20 @@ def test_g2_rescale_matches_jax():
         assert np.array_equal(got[:, k], np.asarray(leaf).T)
 
 
+def test_segmented_window_bits_match_jax():
+    for n, seg in ((1 << 10, 256), (1 << 16, 1 << 14), (1 << 20, 1 << 19),
+                   (1 << 22, 1 << 20), (1 << 23, 1 << 20),
+                   (1 << 24, 1 << 19)):
+        assert TM.best_window_bits(n, seg) == JM.best_window_bits(n, seg)
+    from rapidsnark_tpu import config as JCFG
+    from rapidsnark_tpu_torch import config as TCFG
+    for n in (1 << 20, 1 << 21, 1 << 22, 1 << 24):
+        assert TCFG.msm_segment(n) == JCFG.msm_segment(n)
+
+
 def test_unported_options_raise():
     pts = _t(np.zeros((1, 256, 2, 8), np.uint32))
     sc = _t(np.zeros((1, 256, 8), np.uint32))
-    for kw in ({"segment": 256}, {"row_slice": (0, 1)}, {"combine": True}):
+    for kw in ({"combine": True},):
         with pytest.raises(NotImplementedError):
             TM.msm(G1P, pts, sc, 4, **kw)

@@ -94,6 +94,75 @@ def test_plain_fused_pass_matches_jax_fused(dif, power=12):
     assert np.array_equal(port_words(got[0]), words_of(want))
 
 
+def _jax_rows(w: np.ndarray):
+    """(n, 8) u32 words -> the JAX (16, n) limb-row layout."""
+    return jnp.asarray(np.moveaxis(
+        np.stack([w & 0xFFFF, w >> 16], axis=-1).reshape(-1, 16), 0, 1))
+
+
+@pytest.mark.parametrize("dif", [False, True])
+def test_plain_tail_matches_jax_fused(dif, power=9):
+    """ntt_tail plain version vs the JAX package's fused.ntt_tail (its
+    plain XLA form on the CPU), vs the seven lowest layers as one fused
+    pass, and from the JAX per-half twiddle rows carried by convert."""
+    from rapidsnark_tpu_torch import convert
+    tp = TN.NTTPlan(power)
+    n = 1 << power
+    x = _poly(power, (2,), seed=7)
+    tw = tp.inv_tw if dif else tp.fwd_tw
+    tws = JN._tail_tws(_jax_rows(tw), n, 7)
+    assert sorted(tws) == [1, 2, 4, 8, 16, 32, 64]
+    # one polynomial per call: the JAX plain form's field mul does not
+    # broadcast its twiddle row over a batch axis
+    want = np.stack([words_of(JFU.ntt_tail(jnp.asarray(x[:, b]), tws,
+                                           dif=dif)) for b in range(2)])
+    ttw = torch.from_numpy(tw.view(np.int32))
+    got = TFU.ntt_tail(_packed(x), ttw, dif)
+    assert np.array_equal(port_words(got), want)
+    assert torch.equal(got, TFU.ntt_fused_pass_plain(_packed(x), ttw, 0, 7,
+                                                     dif))
+    carried = convert.tail_twiddles_from_jax(
+        {h: np.asarray(r) for h, r in tws.items()}, n)
+    assert torch.equal(TFU.ntt_tail(_packed(x), carried, dif), got)
+    with pytest.raises(ValueError, match="power of two"):
+        TFU.ntt_tail(_packed(x)[:, :64], ttw, dif)
+
+
+@pytest.mark.parametrize("power", [12, 14])
+def test_to_odd_coset_per_stage(power, monkeypatch):
+    """RSTPU_NTT_FUSE=0 at N >= 2^12: ntt_tail plus one ntt_butterfly
+    layer per upper bit gives the fused configuration's words and the JAX
+    package's (which runs per stage under the same setting)."""
+    from rapidsnark_tpu_torch import config, device as D
+    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power)
+    ja = {k: jnp.asarray(v) for k, v in jp.arrays().items()}
+    x = _poly(power, (), seed=power)
+    fusedw = TN.to_odd_coset(_packed(x), tp.tensors("cpu"))
+    monkeypatch.setenv("RSTPU_NTT_FUSE", "0")
+    assert not config.ntt_fuse(1 << power) and not JN._fuse_enabled(1 << power)
+    calls = []
+    real = TFU.ntt_tail
+    monkeypatch.setattr(TFU, "ntt_tail",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = TN.to_odd_coset(_packed(x), tp.tensors("cpu"))
+    assert len(calls) == 2          # one DIF tail, one DIT tail
+    assert torch.equal(got, fusedw)
+    want = jax.jit(lambda v: JN.to_odd_coset(v, ja, jp.eta))(jnp.asarray(x))
+    assert np.array_equal(port_words(got), words_of(want))
+    assert D.counts["ntt_tail"] == 0     # plain versions are not launches
+
+
+def test_ntt_fuse_knob_matches_jax(monkeypatch):
+    from rapidsnark_tpu_torch import config
+    monkeypatch.delenv("RSTPU_NTT_FUSE", raising=False)
+    assert [config.ntt_fuse(1 << p) for p in (6, 11, 12, 20)] == \
+        [False, False, True, True]
+    for v in ("0", "1", ""):
+        monkeypatch.setenv("RSTPU_NTT_FUSE", v)
+        for p in (6, 12, 20):
+            assert config.ntt_fuse(1 << p) == JN._fuse_enabled(1 << p)
+
+
 def words_of_packed_rows(w: np.ndarray) -> np.ndarray:
     """(n, 8) u32 words -> the JAX (8, n) packed-row layout."""
     return np.ascontiguousarray(w.T)

@@ -84,6 +84,38 @@ def test_proof_byte_identical(fixture):
     assert publics == jpub
 
 
+def test_segmented_proof_byte_identical(monkeypatch):
+    """Prover(segment=256) on sqchain64 (256 padded points: two slices of
+    the GLV entry axis, the second on phi images): the proof equals the
+    unsegmented port's and the JAX package's Prover(segment=256), byte
+    for byte; the arguments win over the environment and a segment that
+    does not divide the padded length falls back to the whole axis."""
+    zk, wt = _load("sqchain64")
+    monkeypatch.setenv("RSTPU_MSM_SEGMENT", "128")
+    monkeypatch.setenv("RSTPU_WINDOW_GROUP", "3")
+    seg = Prover(zk, window_bits=4, window_group=8, segment=256,
+                 device="cpu")
+    assert (seg.segment, seg.window_group, seg.nmax) == (256, 8, 256)
+    assert Prover(zk, window_bits=4, device="cpu").segment == 128
+    assert Prover(zk, window_bits=4, segment=192, device="cpu").segment == 0
+    whole = Prover(zk, window_bits=4, window_group=8, segment=0,
+                   device="cpu")
+    assert (whole.segment, whole.window_group) == (0, 8)
+    assert set(seg.setup_phases) == {"table_upload", "g2_rescale",
+                                     "coef_binning", "ntt_plan"}
+    proof, publics = seg.prove(wt.values, r=R, s=S)
+    wproof, wpub = whole.prove(wt.values, r=R, s=S)
+    assert (proof.a, proof.b, proof.c) == (wproof.a, wproof.b, wproof.c)
+    assert publics == wpub
+    assert verify(zkey_to_ref(zk), proof, publics)
+    jzk = j_read_zkey(os.path.join(FIXTURES, "sqchain64.zkey"))
+    jp = JProver(jzk, window_bits=4, window_group=8, segment=256)
+    assert jp.segment == 256
+    jproof, jpub = jp.prove(wt.values, r=R, s=S)
+    assert (proof.a, proof.b, proof.c) == (jproof.a, jproof.b, jproof.c)
+    assert publics == jpub
+
+
 def test_release_drops_tables():
     zk, _ = _load("multiplier")
     prover = Prover(zk, window_bits=4, device="cpu")
