@@ -11,8 +11,11 @@ failure exits non-zero:
   2. each of the seven kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
-     and each timed with CUDA events at its path's shapes beside the
-     plain version and the least time the card could take (bound);
+     and each timed with CUDA events beside the plain version and the
+     least time the card could take (bound), at every shape the proves
+     below give it: the whole-axis 2^20 prove's, and the segmented 2^22
+     prove's (a slice's scan, the narrow cross-slice add, every fused
+     pass over 3 x 2^22);
   3. prove the committed tests/fixtures/sqchain64 through the CLI entry
      point and pairing-verify (the small circuit's NTTs run
      ntt_butterfly);
@@ -87,10 +90,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import numpy as np
-    from rapidsnark_tpu_torch import cli, device as D, fixtures
+    from rapidsnark_tpu_torch import cli, config, device as D, fixtures
     from rapidsnark_tpu_torch.io.wtns import read_wtns
     from rapidsnark_tpu_torch.io.zkey import read_zkey, zkey_to_ref
-    from rapidsnark_tpu_torch.ops import field as FF, fused
+    from rapidsnark_tpu_torch.ops import field as FF, fused, msm as MSM
+    from rapidsnark_tpu_torch.ops.ntt import _passes
     from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO
     from rapidsnark_tpu_torch.ops.glv import GLV_BITS
     from rapidsnark_tpu_torch.ref.field import P, R_FR
@@ -190,6 +194,18 @@ def main() -> int:
     nb = (2 << LOGN_BIG) // 256
     lanes = {G1P: G * 4 * nb, G2P_ISO: G * 1 * nb}
     add_lanes = {G1P: G * 4 * (M + 1), G2P_ISO: G * 1 * (M + 1)}
+    # the segmented 2^22 prove (phase 6 fails unless it ran with these):
+    # a slice's scan has segment / 256 lanes per window per table row, and
+    # the cross-slice accumulate adds one point per window per row
+    seg = config.msm_segment(1 << LOGN_SEG)
+    seg_c = MSM.best_window_bits(1 << LOGN_SEG, seg)
+    seg_nwin = -(-GLV_BITS // seg_c)
+    seg_G = max(g for g in range(1, config.window_group() + 1)
+                if seg_nwin % g == 0)
+    if not seg or (1 << LOGN_SEG) % seg:
+        raise RuntimeError(f"2^{LOGN_SEG} points do not segment ({seg})")
+    seg_lanes = {G1P: seg_G * 4 * (seg // 256), G2P_ISO: seg_G * (seg // 256)}
+    seg_add_lanes = {G1P: seg_G * 4, G2P_ISO: seg_G}
     coords = {G1P: 3, G2P_ISO: 6, G2P: 6}
     mont_add = {G1P: 17, G2P_ISO: 36}
     mont_mixed = {G1P: 14, G2P_ISO: 33}
@@ -198,7 +214,7 @@ def main() -> int:
     for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
         L = coords[curve]
         # add: a small adversarial-free random batch, then the main shape
-        for n in (1000, add_lanes[curve]):
+        for n in (1000, add_lanes[curve], seg_add_lanes[curve]):
             p, q = fe(P, (n, L)), fe(P, (n, L))
             want, plain_ms = timed_once(lambda: fused.add_plain(curve, p, q))
             got = fused.add(curve, p, q)
@@ -207,13 +223,14 @@ def main() -> int:
             if n == 1000:
                 check_only("add", f"{tag} n={n}", e)
                 continue
-            ms = timed(lambda: fused.add(curve, p, q), 20)
+            ms = timed(lambda: fused.add(curve, p, q),
+                       20 if n == add_lanes[curve] else 200)
             record("add", f"{tag} n={n}", e, ms, plain_ms,
                    3 * n * L * 32, n * mont_add[curve] * MONT_IMADS)
         # scan_cols_packed: K in {1, 2, 256}, signs set, some infinities
         A = L - L // 3
         for K, n in ((1, 1000), (2, 1000), (256, 1000),
-                     (256, lanes[curve])):
+                     (256, lanes[curve]), (256, seg_lanes[curve])):
             acc = fe(P, (n, L))
             cols = fe(P, (K, n, A))
             cols[:, ::7] = 0                       # (0,0) = infinity
@@ -284,28 +301,40 @@ def main() -> int:
                        n * mont_strict[curve] * MONT_IMADS)
         torch.cuda.empty_cache()
 
-    # NTT kernels: Fr elements
+    # NTT kernels: Fr elements. The fused passes of the 2^20 prove, then
+    # every pass of the 2^22 prove's two transforms (DIF top-down, DIT
+    # bottom-up with the coset pre-multiply on its first pass)
+    def pass_cases(logn, cases):
+        n = 1 << logn
+        x, tw, pm = fe(R_FR, (3, n)), fe(R_FR, (n // 2,)), fe(R_FR, (n,))
+        for lo, k, dif, pre in cases:
+            pmul = pm if pre else None
+            key = f"3 x 2^{logn} bits {lo}+{k} " \
+                f"{'dif' if dif else 'dit'}" + (" pre_mul" if pre else "")
+            want, plain_ms = timed_once(lambda: fused.ntt_fused_pass_plain(
+                x, tw, lo, k, dif, pmul))
+            got = fused.ntt_fused_pass(x, tw, lo, k, dif, pmul)
+            torch.cuda.synchronize()
+            e = err(got, want)
+            del want, got
+            ms = timed(lambda: fused.ntt_fused_pass(x, tw, lo, k, dif,
+                                                    pmul), 10)
+            elems = 3 * n
+            nbytes = 2 * elems * 32 + (1 << (lo + k - 1)) * 32 + \
+                (n * 32 if pre else 0)
+            imads = (elems // 2 * k + (elems if pre else 0)) * MONT_IMADS
+            record("ntt_fused_pass", key, e, ms, plain_ms, nbytes, imads)
+        return x, tw
+
+    seg_passes = _passes(LOGN_SEG)
+    x, tw = pass_cases(LOGN_SEG,
+                       [(lo, k, True, False) for lo, k in seg_passes] +
+                       [(lo, k, False, lo == 0) for lo, k in seg_passes])
+    del x, tw
+    torch.cuda.empty_cache()
     N = 1 << LOGN_BIG
-    x = fe(R_FR, (3, N))
-    tw = fe(R_FR, (N // 2,))
-    pm = fe(R_FR, (N,))
-    for lo, k, dif, pre in ((0, 10, False, True), (0, 10, True, False),
-                            (10, 5, False, False), (15, 5, True, False)):
-        pmul = pm if pre else None
-        key = f"bits {lo}+{k} {'dif' if dif else 'dit'}" + \
-            (" pre_mul" if pre else "")
-        want, plain_ms = timed_once(lambda: fused.ntt_fused_pass_plain(
-            x, tw, lo, k, dif, pmul))
-        got = fused.ntt_fused_pass(x, tw, lo, k, dif, pmul)
-        torch.cuda.synchronize()
-        e = err(got, want)
-        ms = timed(lambda: fused.ntt_fused_pass(x, tw, lo, k, dif, pmul),
-                   10)
-        elems = 3 * N
-        nbytes = 2 * elems * 32 + (1 << (lo + k - 1)) * 32 + \
-            (N * 32 if pre else 0)
-        imads = (elems // 2 * k + (elems if pre else 0)) * MONT_IMADS
-        record("ntt_fused_pass", key, e, ms, plain_ms, nbytes, imads)
+    x, tw = pass_cases(LOGN_BIG, ((0, 10, False, True), (0, 10, True, False),
+                                  (10, 5, False, False), (15, 5, True, False)))
     # ntt_tail at the per-stage prove's shape, also held against the
     # same seven layers as one fused pass
     for dif in (True, False):
@@ -323,7 +352,7 @@ def main() -> int:
         record("ntt_tail", key, err(got, want), ms, plain_ms,
                2 * 3 * N * 32 + 127 * 32,
                3 * N // 2 * fused.TAIL_BITS * MONT_IMADS)
-    del x, tw, pm, want, got, same
+    del x, tw, want, got, same
     # sqchain64's NTTs: domain 128, the (3, 128) stack -> 3 * 64 pairs
     # per layer; 3072 pairs checks a wider launch; 3 * 2^19 pairs are the
     # upper layers of the per-stage 2^20 prove
@@ -513,8 +542,13 @@ def main() -> int:
     slices = 2 * prover.nmax // prover.segment if prover.segment else 1
     log(f"  segment {prover.segment} c_bits {prover.c_bits} slices {slices} "
         f"window groups {groups} launches {json.dumps(seg_counts)}")
-    if not prover.segment:
-        raise RuntimeError(f"the 2^{LOGN_SEG} prove did not segment its MSMs")
+    if (prover.nmax, prover.segment, prover.c_bits, nwin // groups) != \
+            (1 << LOGN_SEG, seg, seg_c, seg_G):
+        raise RuntimeError(
+            f"the 2^{LOGN_SEG} prove ran nmax {prover.nmax} segment "
+            f"{prover.segment} c {prover.c_bits} group {nwin // groups}, "
+            f"phase 2 checked the kernels for {1 << LOGN_SEG}, {seg}, "
+            f"{seg_c}, {seg_G}")
     if seg_counts["scan_cols_packed"] != 2 * slices * groups:
         raise RuntimeError(
             f"scan_cols_packed launched {seg_counts['scan_cols_packed']} "
@@ -524,8 +558,18 @@ def main() -> int:
     rows_seg, seg_front_peak = front_rows(prover, wpath)
     del rows_seg
     prover.release()
+    # the kernels' share of the segmented MSMs, from this run's times at
+    # the slice's shapes: one G1 and one G2 scan per slice per group
+    def case_ms(name, key):
+        return next(c["ms"] for c in results[name]["cases"]
+                    if c["case"] == key)
+    scan_s = slices * groups * 1e-3 * (
+        case_ms("scan_cols_packed", f"g1 K=256 n={seg_lanes[G1P]}") +
+        case_ms("scan_cols_packed", f"g2 K=256 n={seg_lanes[G2P_ISO]}"))
     log(json.dumps({f"prove_2^{LOGN_SEG}": {
         "cold": seg_cold, "warm": seg_warm, "setup": prover.setup_phases,
+        "msms_scan_kernel_s": scan_s,
+        "msms_other_s": seg_warm["msms"] - scan_s,
         "peak_mem_bytes": max(seg_peak, seg_peak2),
         "front_peak_mem_bytes": seg_front_peak,
         "fixture_gen_s": gen_seg_s, "segment": prover.segment,
@@ -543,7 +587,7 @@ def main() -> int:
                              "rapidsnark_tpu/ops/fused.py:176", big_counts,
                              "g1"),
         "ntt_fused_pass": ("csrc/ntt.cu", "rapidsnark_tpu/ops/fused.py:371",
-                           big_counts, "bits 0+10 dit"),
+                           big_counts, f"2^{LOGN_BIG} bits 0+10 dit"),
         "ntt_butterfly": ("csrc/ntt.cu", "rapidsnark_tpu/ops/fused.py:233",
                           small_counts, "n=192 dit"),
         "ntt_tail": ("csrc/ntt.cu", "rapidsnark_tpu/ops/fused.py:458",

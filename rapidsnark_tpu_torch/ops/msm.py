@@ -294,57 +294,44 @@ def _phi(curve, pts):
 
 def _table_slice(curve, pts, off: int, size: int):
     """Entries off .. off+size of the virtual GLV table [P, phi(P)]
-    (*b, 2n, A, 8) of a table (*b, n, A, 8): the lower part is a view,
-    the upper part the phi image of that part only."""
+    (*b, 2n, A, 8) of a table (*b, n, A, 8), for a range that lies in one
+    half or is the whole axis: the lower part is a view, the upper part
+    the phi image of that part only."""
     npts = pts.shape[-3]
-    lo_n = max(0, min(npts, off + size) - off)
-    parts = []
-    if lo_n:
-        parts.append(pts[..., off:off + lo_n, :, :])
-    if lo_n < size:
-        u0 = max(off, npts) - npts
-        parts.append(_phi(curve, pts[..., u0:u0 + size - lo_n, :, :]))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-3)
+    if off >= npts:
+        return _phi(curve, pts[..., off - npts:off - npts + size, :, :])
+    lower = pts[..., off:off + min(size, npts - off), :, :]
+    if off + size <= npts:
+        return lower
+    assert off == 0 and size == 2 * npts
+    return torch.cat([lower, _phi(curve, pts)], dim=-3)
 
 
 def _segmented_groups(sc, pts, scalars, c: int, G_: int, nwin: int,
                       segment: int):
     """Window totals by slices of `segment` entries of the virtual
     [k1 | k2] axis: entry `off` maps to table point off % npts, and every
-    slice adds one point per window into the running totals. Returns the
-    list of per-group totals (G_, *b, L, 8)."""
+    slice adds one point per window into the running totals. No slice
+    straddles the k1/k2 boundary, so each slice's scalars are decomposed
+    on their own and the decomposed stack of the whole axis never
+    exists. Returns the list of per-group totals (G_, *b, L, 8)."""
     npts = scalars.shape[-2]
-    n = 2 * npts
-    if n % segment or segment % _CHUNK:
-        raise ValueError(f"msm: segment {segment} must divide {n} entries "
+    if npts % segment or segment % _CHUNK:
+        raise ValueError(f"msm: segment {segment} must divide {npts} points "
                          f"and be a multiple of {_CHUNK}")
     bshape = tuple(scalars.shape[:-2])
     params = GLV.params_for(sc)
-    # when segment divides npts no slice straddles the k1/k2 boundary and
-    # each slice's scalars are decomposed on their own (the decomposed
-    # stack of the whole axis never exists); otherwise decompose once
-    # and slice the halves
-    per_slice = npts % segment == 0
-    if not per_slice:
-        s9, neg = GLV.decompose(params, scalars)
-        carries = signed_digit_carries(s9, c, GLV.GLV_BITS, lead=True)
     ngroups = nwin // G_
     accs = [point_inf(sc, (G_,) + bshape, scalars.device)
             for _ in range(ngroups)]
-    for off in range(0, n, segment):
+    for off in range(0, 2 * npts, segment):
         pseg = _table_slice(sc, pts, off, segment)
-        if per_slice:
-            offp = off % npts
-            d2, n2 = GLV.decompose(params,
-                                   scalars[..., offp:offp + segment, :])
-            start = segment if off >= npts else 0
-            s9seg = d2[..., start:start + segment]
-            nseg = n2[..., start:start + segment]
-            cseg = signed_digit_carries(s9seg, c, GLV.GLV_BITS, lead=True)
-        else:
-            s9seg = s9[..., off:off + segment]
-            cseg = carries[..., off:off + segment]
-            nseg = neg[..., off:off + segment]
+        offp = off % npts
+        d2, n2 = GLV.decompose(params, scalars[..., offp:offp + segment, :])
+        start = segment if off >= npts else 0
+        s9seg = d2[..., start:start + segment]
+        nseg = n2[..., start:start + segment]
+        cseg = signed_digit_carries(s9seg, c, GLV.GLV_BITS, lead=True)
         for ig in range(ngroups):
             dseg = group_signed_digits(s9seg, cseg, ig * G_, G_, c, lead=True)
             t = _window_group(sc, pseg, dseg ^ nseg[None], segment, c)
@@ -362,7 +349,7 @@ def msm(curve, pts, scalars, c: int, window_group: int = 5,
     totals as packed projective points (W, *batch, L, 8) on `curve`,
     for the Horner combine on the host (combine=False).
 
-    `segment` (a multiple of 256 dividing 2n, 0 = off) runs the scan in
+    `segment` (a multiple of 256 dividing n, 0 = off) runs the scan in
     2n/segment slices of the GLV entry axis, which bounds the scan's
     working set (the all-positions prefix is 96-192 bytes per entry per
     window of a group). `row_slice=(row_lo, nrows)` selects nrows

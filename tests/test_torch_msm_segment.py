@@ -32,16 +32,14 @@ def _jax_points(table, g2):
     return tuple(cs)
 
 
-def _group_equal(got, want_fn, g2):
+def _assert_group_equal(got, want_fn, g2):
     """Every window total of the port's (W, rows, L, 8) result is
     group-equal to want_fn(w, b)."""
     grp = refc.G2 if g2 else refc.G1
     for w in range(got.shape[0]):
         for b in range(got.shape[1]):
             g, e = _affine_window(got, g2, w, b), want_fn(w, b)
-            if not ((g is None and e is None) or grp.eq(g, e)):
-                return False
-    return True
+            assert grp.eq(g, e), f"window {w} row {b}: {g} != {e}"
 
 
 @pytest.mark.parametrize("g2", [False, True])
@@ -68,31 +66,35 @@ def test_segmented_msm_group_equal(g2):
         TFU.scan_cols_packed = real
     got = got.numpy().view(np.uint32)
     assert len(calls) == 8 and got.shape == whole.shape
-    assert _group_equal(got, lambda w, b: _affine_window(whole, g2, w, b), g2)
+    _assert_group_equal(got, lambda w, b: _affine_window(whole, g2, w, b), g2)
     want = jax.jit(lambda p, s: JM.msm(curve_j, p, s, c, G, combine=False,
                                        segment=256))(
         _jax_points(table, g2), jnp.asarray(sc))
-    assert _group_equal(got, lambda w, b: _affine_window_jax(want, g2, w, b),
+    _assert_group_equal(got, lambda w, b: _affine_window_jax(want, g2, w, b),
                         g2)
 
 
 def test_segment_straddling_the_glv_halves():
     """768 points, segment = 512: the middle slice of the 1536-entry axis
-    holds the last 256 points and the first 256 phi images (segment does
-    not divide the point count, so the scalars are decomposed once and
-    sliced). Group-equal to the whole-axis result."""
+    would hold the last 256 points and the first 256 phi images. The port
+    slices within one half only (as its Prover and the JAX package's
+    never ask for anything else: both fall back to segment 0 when the
+    segment does not divide the point count), so such a segment raises,
+    like one that is no multiple of 256 or no divisor at all; a segment
+    of the whole point count (two slices, one per half) is the largest
+    that runs, and is group-equal to the whole-axis result."""
     n, c, G = 768, 8, 16
     _, words = _points(False, 256, seed=8)
     table = np.tile(words, (3, 1, 1))[None]
     sc = _scalar_words(n, (1,), seed=9)
-    whole = TM.msm(G1P, _t(table), _t(sc), c, G).numpy().view(np.uint32)
-    got = TM.msm(G1P, _t(table), _t(sc), c, G, segment=512)
-    got = got.numpy().view(np.uint32)
-    assert _group_equal(got, lambda w, b: _affine_window(whole, False, w, b),
-                        False)
-    for bad in (384, 500):     # not a multiple of 256 / not a divisor
+    for bad in (512, 384, 500, 1024):
         with pytest.raises(ValueError, match="segment"):
             TM.msm(G1P, _t(table), _t(sc), c, G, segment=bad)
+    whole = TM.msm(G1P, _t(table), _t(sc), c, G).numpy().view(np.uint32)
+    got = TM.msm(G1P, _t(table), _t(sc), c, G, segment=768)
+    got = got.numpy().view(np.uint32)
+    _assert_group_equal(got, lambda w, b: _affine_window(whole, False, w, b),
+                        False)
 
 
 @pytest.mark.parametrize("segment", [0, 256])
