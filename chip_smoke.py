@@ -7,15 +7,18 @@ Needs one CUDA card (sm_90a: H100) and nvcc; exits non-zero without
 them, or when run away from the repository. Phases, in order; any
 failure exits non-zero:
   1. the card's name and power limit, torch / CUDA versions, and the
-     build of every kernel (all nvcc processes started together);
-  2. each of the seven kernels against its plain PyTorch version on the
+     build of the three kernel libraries (all nvcc processes started
+     together);
+  2. each of the eight kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed with CUDA events beside the plain version and the
-     least time the card could take (bound), at every shape the proves
-     below give it: the whole-axis 2^20 prove's, and the segmented 2^22
+     least time the card could take (bound), at every shape the paths
+     below give it: the whole-axis 2^20 prove's, the segmented 2^22
      prove's (a slice's scan, the narrow cross-slice add, every fused
-     pass over 3 x 2^22);
+     pass over 3 x 2^22), and for dma_gather the tool's default rows and
+     the 2^20 prove's G1 and G2 rows, with a permutation and with
+     repeated rows, beside torch.index_select (library_ms);
   3. prove the committed tests/fixtures/sqchain64 through the CLI entry
      point and pairing-verify (the small circuit's NTTs run
      ntt_butterfly);
@@ -23,33 +26,54 @@ failure exits non-zero:
      prove it through the CLI entry point (cold), then once more on the
      loaded Prover (warm); the proof must pairing-verify, and add /
      scan_cols_packed / ntt_fused_pass must each have launched during
-     the first prove;
+     the first prove. On the loaded Prover: the window totals through
+     the device combine (ops/msm._combine_windows) against the host
+     combine; msm(glv=False) against msm(glv=True) on 2^16 points of the
+     same tables; and RSTPU_NTT_SEQ=1 (a, b, c transformed one at a
+     time), whose front must give the stacked rows word for word;
   5. the per-stage NTT configuration (RSTPU_NTT_FUSE=0) on the same
      2^20 fixture through the CLI entry point: the proof pairing-
      verifies, ntt_tail and ntt_butterfly both launched, and
      Prover.front gives the fused configuration's rows word for word;
-  6. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
+  6. the gather tools in-process at 2^21 rows of 64 bytes (the 2^20
+     prove's GLV axis): both must report correct and dma_gather must
+     have launched;
+  7. the proof server (server.__main__.main on a thread of this
+     process) with the 2^20 fixture and sqchain64 as its registry and
+     two witness-generator executables written into ./build: over HTTP,
+     /status while the registry loads and when ready, two proves of the
+     2^20 circuit and one of sqchain64 (each proof pairing-verified
+     against its publics; add / scan_cols_packed / ntt_fused_pass
+     launched in the first, ntt_butterfly in the last), 404 for an
+     unknown circuit, a request overwritten by the next one, and a body
+     that is not JSON ending `failed`;
+  8. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
      through the CLI entry point with the segmented MSM (cold), then on
      the loaded Prover (warm); the proof must pairing-verify and
      scan_cols_packed must have launched once per slice per window group
      per MSM call;
-  7. a `kernels` JSON line, the card line, and the result line last.
+  9. a `kernels` JSON line, the card line, and the result line last.
 
 Bounds: bytes over 3.35 TB/s (each input read once, each output written
 once) against 32-bit multiply-adds over the SMs' IMAD rate, 132 SMs x 64
 per clock x 1.98 GHz = 16.7e12/s (H100 SXM; Hopper white paper). A
 Montgomery product of 8 x 8 32-bit limbs is counted as 264 IMADs (two
 64-product passes, a low and a high IMAD each, plus the 8 quotient
-digits); additions are not counted.
+digits); additions are not counted. dma_gather does no arithmetic: its
+bound is its bytes (rows read and written once, 4 bytes an index).
 """
 
 import hashlib
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -97,8 +121,13 @@ def main() -> int:
     from rapidsnark_tpu_torch.ops.ntt import _passes
     from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO
     from rapidsnark_tpu_torch.ops.glv import GLV_BITS
+    from rapidsnark_tpu_torch.prover import Prover, host_g1, host_g2
     from rapidsnark_tpu_torch.ref.field import P, R_FR
     from rapidsnark_tpu_torch.ref.groth16 import Proof, verify
+    from rapidsnark_tpu_torch.server import http as server_http
+    from rapidsnark_tpu_torch.server.__main__ import main as server_main
+    from rapidsnark_tpu_torch.tools import bench_dma_gather, bench_gather
+    from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
 
     dev = torch.device("cuda")
     card = card_line()
@@ -170,14 +199,16 @@ def main() -> int:
     results = {}
     failures = []
 
-    def record(name, key, e, ms, plain_ms, nbytes, imads):
+    def record(name, key, e, ms, plain_ms, nbytes, imads, library_ms=None):
         b, by = bound_ms(nbytes, imads)
         ent = results.setdefault(name, {"max_abs_err": 0, "cases": []})
         ent["max_abs_err"] = max(ent["max_abs_err"], e)
         ent["cases"].append({"case": key, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b, "bound_by": by})
+                             "bound_ms": b, "bound_by": by,
+                             "library_ms": library_ms})
         log(f"  {name}[{key}]: err {e} kernel {ms:.4f} ms plain "
-            f"{plain_ms} ms bound {b:.4f} ms ({by})")
+            f"{plain_ms} ms bound {b:.4f} ms ({by})"
+            + ("" if library_ms is None else f" library {library_ms:.4f} ms"))
         if e != 0:
             failures.append(f"{name}[{key}] disagrees (max err {e})")
 
@@ -194,7 +225,7 @@ def main() -> int:
     nb = (2 << LOGN_BIG) // 256
     lanes = {G1P: G * 4 * nb, G2P_ISO: G * 1 * nb}
     add_lanes = {G1P: G * 4 * (M + 1), G2P_ISO: G * 1 * (M + 1)}
-    # the segmented 2^22 prove (phase 6 fails unless it ran with these):
+    # the segmented 2^22 prove (phase 8 fails unless it ran with these):
     # a slice's scan has segment / 256 lanes per window per table row, and
     # the cross-slice accumulate adds one point per window per row
     seg = config.msm_segment(1 << LOGN_SEG)
@@ -373,6 +404,40 @@ def main() -> int:
             record("ntt_butterfly", tag, e, ms, plain_ms, 5 * n * 32,
                    n * MONT_IMADS)
     torch.cuda.empty_cache()
+
+    # dma_gather: rows of R words by a permutation and by an index vector
+    # that repeats rows, at the tool's default shape and at the 2^20
+    # prove's GLV axis of G1 (64-byte) and G2 (128-byte) rows; exact words
+    for glogn, R in ((18, 16), (LOGN_BIG + 1, 16), (LOGN_BIG + 1, 32)):
+        gn = 1 << glogn
+        table = torch.from_numpy(rng.randint(
+            0, 2**31, size=(gn, R), dtype=np.int64).astype(np.int32)).to(dev)
+        for kind, idx_np in (("perm", rng.permutation(gn)),
+                             ("repeats", rng.randint(0, gn // 8, size=gn))):
+            idx = torch.from_numpy(idx_np.astype(np.int32)).to(dev)
+            idx64 = idx.long()
+            want, plain_ms = timed_once(
+                lambda: fused.dma_gather_plain(table, idx))
+            got = fused.dma_gather(table, idx)
+            torch.cuda.synchronize()
+            e = err(got, want)
+            del want, got
+            ms = timed(lambda: fused.dma_gather(table, idx), 20)
+            lib_ms = timed(lambda: torch.index_select(table, 0, idx64), 20)
+            record("dma_gather", f"n=m=2^{glogn} R={R} {kind}", e, ms,
+                   plain_ms, 2 * gn * R * 4 + 4 * gn, 0, library_ms=lib_ms)
+            if (glogn, kind) == (18, "perm"):
+                got = fused.dma_gather(table, idx, blk=256, nsem=4)
+                torch.cuda.synchronize()
+                check_only("dma_gather", f"n=m=2^{glogn} R={R} blk=256 "
+                           "nsem=4", err(got, fused.dma_gather_plain(
+                               table, idx)))
+                ms = timed(lambda: fused.dma_gather(table, idx, blk=256,
+                                                    nsem=4), 20)
+                log(f"  dma_gather[blk=256 nsem=4]: kernel {ms:.4f} ms")
+                del got
+        del table, idx, idx64
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -436,14 +501,17 @@ def main() -> int:
         return phases, peak
 
     def front_rows(prover, wpath):
-        """Prover.front alone: the MSM scalar rows and the front's own
-        peak of device memory."""
+        """Prover.front alone: the MSM scalar rows, the front's own peak
+        of device memory and its seconds."""
         wit = torch.from_numpy(np.ascontiguousarray(
             read_wtns(wpath).values).view(np.int32)).to(dev)
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         rows = prover.front(wit, prover.tables())
         torch.cuda.synchronize()
-        return rows, torch.cuda.max_memory_allocated()
+        return (rows, torch.cuda.max_memory_allocated(),
+                time.perf_counter() - t0)
 
     def sha256s(*paths):
         out = {}
@@ -471,6 +539,96 @@ def main() -> int:
     log("  launches:", json.dumps(small_counts))
     need(small_counts, ("ntt_butterfly",), "the sqchain64 prove")
 
+    def affine_all(pts, g2):
+        """Packed projective points (rows, L, 8) on the card -> the host's
+        affine points."""
+        w = pts.cpu().numpy().view(np.uint32)
+        H, conv = (G2H, host_g2) if g2 else (G1H, host_g1)
+        return [H.to_affine(conv(w[b])) for b in range(w.shape[0])]
+
+    def phase4_options(prover, zpath, wpath, rows):
+        """On the loaded 2^20 Prover: the device window combine against
+        the host combine of Prover.prove, msm(glv=False) against
+        msm(glv=True) on 2^16 points, and the sequential-NTT front
+        against the stacked one."""
+        tables = prover.tables()
+        c, nwin = prover.c_bits, -(-GLV_BITS // prover.c_bits)
+        g1w, g2w = prover.msms(rows, tables)
+        torch.cuda.synchronize()
+        out = {}
+        for tag, curve, wpts, H, conv in (("g1", G1P, g1w, G1H, host_g1),
+                                          ("g2", G2P, g2w, G2H, host_g2)):
+            D.reset_counts()
+            t0 = time.perf_counter()
+            tot = MSM._combine_windows(curve, wpts, nwin, c)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            adds = D.counts["add"]
+            th = time.perf_counter()
+            w = wpts.cpu().numpy().view(np.uint32)
+            host = [H.to_affine(H.combine_windows(
+                [conv(w[i, b]) for i in range(nwin)], c))
+                for b in range(w.shape[1])]
+            host_dt = time.perf_counter() - th
+            if affine_all(tot, curve is G2P) != host:
+                raise RuntimeError(f"device combine of the {tag} window "
+                                   "totals differs from the host combine")
+            if adds != (nwin - 1) * (c + 1):
+                raise RuntimeError(f"the {tag} combine launched {adds} adds")
+            log(f"  combine {tag}: {w.shape[1]} rows equal the host combine; "
+                f"{adds} add launches {dt:.4f}s on the card, host combine "
+                f"{host_dt:.4f}s")
+            out[f"combine_{tag}"] = {"add_launches": adds, "device_s": dt,
+                                     "host_s": host_dt}
+        npt = 1 << 16
+        g1_sc = torch.stack([rows[0], rows[1], rows[1], rows[2]])
+        for tag, curve, pts, sc in (
+                ("g1", G1P, tables["pts_g1"][:, :npt], g1_sc[:, :npt]),
+                ("g2", G2P, tables["pts_g2"][:, :npt], rows[1][None, :npt])):
+            res = {}
+            for glv in (True, False):
+                D.reset_counts()
+                t0 = time.perf_counter()
+                tot = MSM.msm(curve, pts, sc.contiguous(), c,
+                              prover.window_group, combine=True, glv=glv)
+                torch.cuda.synchronize()
+                res[glv] = (affine_all(tot, curve is G2P),
+                            time.perf_counter() - t0, dict(D.counts))
+            if res[True][0] != res[False][0]:
+                raise RuntimeError(f"msm(glv=False) on {tag} differs from "
+                                   "msm(glv=True)")
+            log(f"  msm {tag} 2^16 points combine=True: glv=False equals "
+                f"glv=True; glv {res[True][1]:.4f}s scans "
+                f"{res[True][2]['scan_cols_packed']}, no glv "
+                f"{res[False][1]:.4f}s scans "
+                f"{res[False][2]['scan_cols_packed']}")
+            out[f"msm_2^16_{tag}"] = {"glv_s": res[True][1],
+                                      "no_glv_s": res[False][1]}
+        os.environ["RSTPU_NTT_SEQ"] = "1"
+        try:
+            zk = read_zkey(zpath)
+            seq = Prover(zk, device="cuda")
+            zk.close()
+        finally:
+            del os.environ["RSTPU_NTT_SEQ"]
+        if not seq.ntt_seq or prover.ntt_seq:
+            raise RuntimeError("RSTPU_NTT_SEQ=1 did not reach the Prover")
+        front_rows(seq, wpath)                               # warm-up
+        rows_seq, seq_peak, seq_s = front_rows(seq, wpath)
+        _, front_peak2, front_s2 = front_rows(prover, wpath)
+        seq.release()
+        if not torch.equal(rows_seq, rows):
+            raise RuntimeError("sequential-NTT front rows differ from the "
+                               "stacked ones")
+        log(f"  RSTPU_NTT_SEQ=1 front rows equal the stacked ones; front "
+            f"peak {seq_peak} B in {seq_s:.4f}s, stacked {front_peak2} B in "
+            f"{front_s2:.4f}s")
+        out["ntt_sequential"] = {
+            "front_peak_mem_bytes": seq_peak, "front_s": seq_s,
+            "stacked_front_peak_mem_bytes": front_peak2,
+            "stacked_front_s": front_s2}
+        return out
+
     # ---------------------------------------------------------- phase 4 --
     log(f"phase4: generate sqchain{1 << LOGN_BIG} on the card")
     fixdir = os.path.join(HERE, "bench_fixtures")
@@ -486,13 +644,15 @@ def main() -> int:
     need(big_counts, ("add", "scan_cols_packed", "ntt_fused_pass"),
          f"the 2^{LOGN_BIG} prove")
     warm, peak2 = warm_prove(prover, zpath, wpath, "big_warm")
-    rows_fused, front_peak = front_rows(prover, wpath)
+    rows_fused, front_peak, _ = front_rows(prover, wpath)
+    extras = phase4_options(prover, zpath, wpath, rows_fused)
     prover.release()
     log(json.dumps({f"prove_2^{LOGN_BIG}": {
         "cold": cold, "warm": warm, "setup": prover.setup_phases,
         "peak_mem_bytes": max(peak, peak2),
         "front_peak_mem_bytes": front_peak, "fixture_gen_s": gen_s,
-        "segment": prover.segment, "c_bits": prover.c_bits, "card": card}}))
+        "segment": prover.segment, "c_bits": prover.c_bits, **extras,
+        "card": card}}))
 
     # ---------------------------------------------------------- phase 5 --
     log(f"phase5: the 2^{LOGN_BIG} prove with per-stage NTTs "
@@ -509,7 +669,7 @@ def main() -> int:
         if stage_counts["ntt_fused_pass"]:
             raise RuntimeError("the per-stage prove ran fused passes")
         ps_warm, _ = warm_prove(prover, zpath, wpath, "per_stage_warm")
-        rows_stage, _ = front_rows(prover, wpath)
+        rows_stage, _, _ = front_rows(prover, wpath)
     finally:
         del os.environ["RSTPU_NTT_FUSE"]
     prover.release()
@@ -523,7 +683,194 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 6 --
-    log(f"phase6: generate sqchain{1 << LOGN_SEG} on the card")
+    tools_logn = LOGN_BIG + 1
+    log(f"phase6: the gather tools at 2^{tools_logn} rows of 64 bytes")
+    D.reset_counts()
+    tool_gather = bench_gather.main([str(tools_logn), "4", "8"],
+                                    device="cuda")
+    tool_dma = bench_dma_gather.main([str(tools_logn), "16"], device="cuda")
+    tool_counts = dict(D.counts)
+    log("  launches:", json.dumps(tool_counts))
+    if not (tool_gather["correct"] and tool_dma["correct"]):
+        raise RuntimeError("a gather tool reports a wrong result")
+    need(tool_counts, ("dma_gather",), "the gather tools")
+    log(json.dumps({"gather_tools": {"bench_gather": tool_gather,
+                                     "bench_dma_gather": tool_dma,
+                                     "card": card}}))
+
+    # ---------------------------------------------------------- phase 7 --
+    log("phase7: the proof server over HTTP")
+    os.chdir(HERE)                  # the server's build_dir is ./build
+    big_name = f"sqchain{1 << LOGN_BIG}"
+    small_z = os.path.join(fx, "sqchain64.zkey")
+    os.makedirs("build", exist_ok=True)
+    for name, steps in ((big_name, (1 << LOGN_BIG) - 2), ("sqchain64", 64)):
+        # witness generators as the server runs them:
+        # ./build/<circuit> <input.json> <circuit.wtns>
+        exe = os.path.join("build", name)
+        with open(exe, "w") as f:
+            f.write(f"#!{sys.executable}\n"
+                    "import json, sys\n"
+                    f"sys.path.insert(0, {HERE!r})\n"
+                    "from rapidsnark_tpu_torch.io.wtns import write_wtns\n"
+                    "from rapidsnark_tpu_torch.ref.setup import "
+                    "sqchain_witness\n"
+                    "with open(sys.argv[1]) as f:\n"
+                    "    x0 = int(json.load(f)['x0'])\n"
+                    f"write_wtns(sys.argv[2], sqchain_witness({steps}, x0))\n")
+        os.chmod(exe, 0o755)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    started = []                    # the (FullProver, HTTPServer) of serve()
+    make_server = server_http.make_server
+
+    def capture(fp, *a, **kw):
+        srv = make_server(fp, *a, **kw)
+        started.append((fp, srv))
+        return srv
+
+    server_http.make_server = capture
+    t_load = time.perf_counter()
+    srv_thread = threading.Thread(
+        target=server_main, args=([str(port), zpath, small_z],), daemon=True)
+    srv_thread.start()
+
+    def http(method, path, body=None):
+        req = urllib.request.Request(base + path, data=body, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def status():
+        code, body = http("GET", "/status")
+        if code != 200:
+            raise RuntimeError(f"GET /status answered {code}")
+        return json.loads(body)
+
+    polls_loading = 0
+    while True:                      # 200 while the registry loads
+        if not srv_thread.is_alive():
+            raise RuntimeError("the server thread ended while loading")
+        try:
+            st = status()
+        except (ConnectionError, urllib.error.URLError):
+            if time.perf_counter() - t_load > 60:
+                raise
+            time.sleep(0.01)         # the listener is not up yet
+            continue
+        if st == {"status": "ready"}:
+            break
+        if st != {}:
+            raise RuntimeError(f"status while loading: {st}")
+        polls_loading += 1
+        if time.perf_counter() - t_load > 300:
+            raise RuntimeError("the registry did not load in 300 s")
+        time.sleep(0.05)
+    load_s = time.perf_counter() - t_load
+    server_http.make_server = make_server
+    full_prover, http_server = started[0]
+    log(f"  registry of 2 circuits ready in {load_s:.3f}s "
+        f"({polls_loading} polls answered 200 with {{}} meanwhile)")
+    if polls_loading == 0:
+        raise RuntimeError("no /status poll was answered during the load")
+
+    def wait_done(t0, limit=300.0):
+        while True:
+            st = status()
+            if st.get("status") != "busy":
+                return st, time.perf_counter() - t0
+            if time.perf_counter() - t0 > limit:
+                raise RuntimeError("the server stayed busy")
+            time.sleep(0.01)
+
+    def request(circuit, body):
+        t0 = time.perf_counter()
+        code, _ = http("POST", f"/input/{circuit}", body)
+        if code != 200:
+            raise RuntimeError(f"POST /input/{circuit} answered {code}")
+        return t0
+
+    def proved(circuit, zkey_path, x0, tag):
+        """One request to its end: success, both fields JSON strings,
+        the proof pairing-verified against the payload's publics."""
+        t0 = request(circuit, json.dumps({"x0": x0}).encode())
+        st, dt = wait_done(t0)
+        if st.get("status") != "success":
+            raise RuntimeError(f"{tag}: {st}")
+        if not (isinstance(st["proof"], str)
+                and isinstance(st["pubData"], str)):
+            raise RuntimeError(f"{tag}: proof / pubData are not strings")
+        pj, pub = json.loads(st["proof"]), json.loads(st["pubData"])
+        proof = Proof(a=(int(pj["pi_a"][0]), int(pj["pi_a"][1])),
+                      b=((int(pj["pi_b"][0][0]), int(pj["pi_b"][0][1])),
+                         (int(pj["pi_b"][1][0]), int(pj["pi_b"][1][1]))),
+                      c=(int(pj["pi_c"][0]), int(pj["pi_c"][1])))
+        check_proof(zkey_path, proof, [int(v) for v in pub], tag)
+        total = full_prover.provers[circuit].last_phases["total"]
+        log(f"  {tag}: POST to success {dt:.3f}s, prove "
+            f"{total:.3f}s (last_phases), pubData {st['pubData'][:70]} "
+            f"verified True")
+        return {"post_to_success_s": dt, "prove_total_s": total,
+                "phases": dict(full_prover.provers[circuit].last_phases)}, pub
+
+    D.reset_counts()
+    req_first, pub3 = proved(big_name, zpath, 3, "request 2^20 x0=3")
+    server_counts = dict(D.counts)
+    log("  launches:", json.dumps(server_counts))
+    need(server_counts, ("add", "scan_cols_packed", "ntt_fused_pass"),
+         "the first 2^20 request")
+    req_warm, pub5 = proved(big_name, zpath, 5, "request 2^20 x0=5")
+    if pub5 == pub3:
+        raise RuntimeError("the second request returned the first's publics")
+    D.reset_counts()
+    req_small, _ = proved("sqchain64", small_z, 3, "request sqchain64")
+    server_small_counts = dict(D.counts)
+    need(server_small_counts, ("ntt_butterfly",), "the sqchain64 request")
+    code, _ = http("POST", "/input/nosuch", b"{}")
+    if code != 404:
+        raise RuntimeError(f"POST /input/nosuch answered {code}, not 404")
+    # a request followed at once by a second one: the first is aborted
+    # before its prove starts (or finishes unseen), the second one's
+    # publics are what the status ends with
+    request(big_name, json.dumps({"x0": 7}).encode())
+    t0 = request(big_name, json.dumps({"x0": 5}).encode())
+    while True:                      # through aborted / the first's success
+        st, dt = wait_done(t0)
+        if st.get("status") == "success" and \
+                json.loads(st["pubData"]) == pub5:
+            break
+        if st.get("status") not in ("aborted", "success"):
+            raise RuntimeError(f"overwritten request ended {st}")
+        if time.perf_counter() - t0 > 300:
+            raise RuntimeError("the second request never finished")
+        time.sleep(0.01)
+    log(f"  overwrite: two requests at once ended with the second one's "
+        f"pubData after {dt:.3f}s")
+    t0 = request(big_name, b"this is not JSON")
+    st, _ = wait_done(t0)
+    if st.get("status") != "failed" or not isinstance(st.get("error"), str) \
+            or not st["error"]:
+        raise RuntimeError(f"a body that is not JSON ended {st}")
+    log(f"  not JSON: failed with error {st['error']!r}")
+    http_server.shutdown()
+    srv_thread.join(30)
+    http_server.server_close()
+    if srv_thread.is_alive():
+        raise RuntimeError("the server thread did not stop")
+    for loaded in full_prover.provers.values():
+        loaded.release()
+    del full_prover, started
+    torch.cuda.empty_cache()
+    log(json.dumps({"server": {
+        "registry_load_s": load_s, "first_2^20": req_first,
+        "warm_2^20": req_warm, "sqchain64": req_small, "card": card}}))
+
+    # ---------------------------------------------------------- phase 8 --
+    log(f"phase8: generate sqchain{1 << LOGN_SEG} on the card")
     D.reset_counts()
     t0 = time.perf_counter()
     zpath, wpath = fixtures.generate(LOGN_SEG, fixdir, device="cuda")
@@ -555,7 +902,7 @@ def main() -> int:
             f"times, expected {2 * slices * groups}")
     need(seg_counts, ("add", "ntt_fused_pass"), f"the 2^{LOGN_SEG} prove")
     seg_warm, seg_peak2 = warm_prove(prover, zpath, wpath, "seg_warm")
-    rows_seg, seg_front_peak = front_rows(prover, wpath)
+    rows_seg, seg_front_peak, _ = front_rows(prover, wpath)
     del rows_seg
     prover.release()
     # the kernels' share of the segmented MSMs, from this run's times at
@@ -576,7 +923,7 @@ def main() -> int:
         "c_bits": prover.c_bits, "slices": slices, "window_groups": groups,
         "card": card}}))
 
-    # ---------------------------------------------------------- phase 7 --
+    # ---------------------------------------------------------- phase 9 --
     # per kernel: source, the TPU kernel it replaces, the counts of the
     # run whose path it is on, and the checked case at that path's shape
     # (the generator runs add_mixed_packed on G1 and add_mixed on G2)
@@ -597,9 +944,14 @@ def main() -> int:
                              "g1"),
         "add_mixed": ("csrc/curve.cu", "rapidsnark_tpu/ops/fused.py:170",
                       gen_counts, "g2"),
+        "dma_gather": ("csrc/gather.cu", "tools/bench_dma_gather.py:32",
+                       tool_counts, f"2^{tools_logn} R=16 perm"),
     }
     runs = {"sqchain64": small_counts, f"2^{LOGN_BIG}": big_counts,
             f"2^{LOGN_BIG} per-stage": stage_counts,
+            "gather tools": tool_counts,
+            f"server 2^{LOGN_BIG} request": server_counts,
+            "server sqchain64 request": server_small_counts,
             f"2^{LOGN_SEG} generator": gen_counts,
             f"2^{LOGN_SEG}": seg_counts}
     kernels = []
@@ -612,7 +964,8 @@ def main() -> int:
             "launches": counts[name], "max_abs_err": ent["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"], "library_ms": None,
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
             "launches_by_run": {k: v[name] for k, v in runs.items()},
             "cases": ent["cases"]})
     log(json.dumps({"kernels": kernels}))

@@ -8,6 +8,13 @@ package):
     RSTPU_NTT_FUSE       0: per-stage NTT layers (ntt_tail + one
                          ntt_butterfly per upper layer); anything else:
                          fused passes (default: fused from 2^12 points)
+    RSTPU_NTT_SEQ        1/0: transform a, b, c one at a time / as one
+                         stack (default: one at a time from 2^23)
+    RSTPU_GLV            0: MSMs without the GLV split (ops/glv.enabled;
+                         default on)
+    RSTPU_NATIVE         0: the Python file reader; 1: require the native
+                         reader (io/native.py; default: native when it
+                         can be built)
 """
 
 from __future__ import annotations
@@ -47,3 +54,13 @@ def ntt_fuse(n: int) -> bool:
     if v is not None:
         return v != "0"
     return n >= (1 << 12)
+
+
+def ntt_sequential(power: int) -> bool:
+    """Whether the front transforms a, b, c one at a time (a third of the
+    NTT's temporaries) instead of as one stack; RSTPU_NTT_SEQ=1/0
+    decides when set, else domains of 2^23 and more."""
+    v = os.environ.get("RSTPU_NTT_SEQ")
+    if v is not None:
+        return v != "0"
+    return power >= 23

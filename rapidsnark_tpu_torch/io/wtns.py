@@ -16,7 +16,7 @@ from typing import Sequence
 import numpy as np
 
 from ..utils.limbs import bytes_to_words, NBYTES
-from .binfile import BinFile, write_binfile
+from .binfile import write_binfile
 
 
 @dataclass
@@ -29,7 +29,8 @@ class Wtns:
 
 
 def read_wtns(path: str) -> Wtns:
-    f = BinFile(path, "wtns", 2)
+    from .native import open_binfile
+    f = open_binfile(path, "wtns", 2)
     try:
         h = f.section_bytes(1)
         (n8,) = struct.unpack_from("<I", h, 0)

@@ -106,7 +106,8 @@ class ZKey:
 
 
 def read_zkey(path: str) -> ZKey:
-    f = BinFile(path, "zkey", 1)
+    from .native import open_binfile
+    f = open_binfile(path, "zkey", 1)
     (protocol,) = struct.unpack_from("<I", f.section_bytes(1), 0)
     if protocol != GROTH16_PROTOCOL_ID:
         raise ValueError("zkey file is not groth16")

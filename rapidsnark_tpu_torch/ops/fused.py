@@ -1,11 +1,13 @@
-"""The port's seven kernels, each beside its plain version.
+"""The port's eight kernels, each beside its plain version.
 
 Counterpart of `rapidsnark_tpu/ops/fused.py` (Pallas kernels for the
-TPU). Each wrapper takes packed element-major int32 tensors (field
-elements (..., 8), points (..., L, 8)). For a tensor on the CPU it runs
-the plain PyTorch version next to it; for a CUDA tensor it launches the
-hand-written CUDA kernel (csrc/curve.cu, csrc/ntt.cu) on the current
-stream and counts the launch, or raises. There is no fallback.
+TPU) and of the row gather of `tools/bench_dma_gather.py`. Each wrapper
+takes packed element-major int32 tensors (field elements (..., 8),
+points (..., L, 8); rows (n, R) for the gather). For a tensor on the CPU
+it runs the plain PyTorch version next to it; for a CUDA tensor it
+launches the hand-written CUDA kernel (csrc/curve.cu, csrc/ntt.cu,
+csrc/gather.cu) on the current stream and counts the launch, or raises.
+There is no fallback.
 
   add               complete add; G1 relaxed law, G2 on the iso-twist
   scan_cols_packed  K sequential signed mixed adds, every accumulator out
@@ -14,6 +16,7 @@ stream and counts the launch, or raises. There is no fallback.
   ntt_tail          the layers on bits 0-6 of the per-stage NTT path
   add_mixed_packed  strict projective + packed affine add (G1, G2 twist)
   add_mixed         the same add, the affine operand as 16-bit limbs
+  dma_gather        row gather out[i] = table[idx[i]] by asynchronous copies
 """
 
 from __future__ import annotations
@@ -324,3 +327,57 @@ def add_mixed(curve, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu":
         return add_mixed_plain(curve, p, q)
     return _launch_add_mixed("add_mixed", curve, p, q, 16)
+
+
+# -------------------------------------------------------------- dma_gather --
+GATHER_THREADS = 128          # csrc/gather.cu: threads a block
+GATHER_MAX_SMEM = 232448      # bytes of shared memory a block may stage in
+
+
+def dma_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table.index_select(0, idx.long())
+
+
+def dma_gather(table: torch.Tensor, idx: torch.Tensor, blk: int = 512,
+               nsem: int = 16) -> torch.Tensor:
+    """Row gather out[i, :] = table[idx[i], :].
+
+    table: (n, R) int32 rows, R % 4 == 0 (rows of whole 16-byte pieces);
+    idx: (m,) int32, m % blk == 0 and blk % nsem == 0. A block of the
+    kernel takes `blk` output rows and each of its threads keeps `nsem`
+    16-byte copies in flight. Returns (m, R) int32. Indices are not
+    checked against n on the card; on the CPU they raise as indexing
+    does."""
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"dma_gather: table {tuple(table.shape)} must be "
+                         f"(n, R) and idx {tuple(idx.shape)} (m,)")
+    if table.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise ValueError(f"dma_gather: expected int32 table and idx, got "
+                         f"{table.dtype} and {idx.dtype}")
+    if table.device != idx.device:
+        raise ValueError(f"dma_gather: table on {table.device}, idx on "
+                         f"{idx.device}")
+    n, R = table.shape
+    m = idx.shape[0]
+    if R % 4:
+        raise ValueError(f"dma_gather: rows of {R} words are not whole "
+                         f"16-byte pieces")
+    if blk < 1 or nsem < 1 or m % blk or blk % nsem:
+        raise ValueError(f"dma_gather: m = {m} must be a multiple of blk = "
+                         f"{blk}, and blk of nsem = {nsem}")
+    if nsem * GATHER_THREADS * 16 > GATHER_MAX_SMEM:
+        raise ValueError(f"dma_gather: nsem = {nsem} copies a thread do not "
+                         f"fit a block's shared memory")
+    if table.device.type == "cpu":
+        return dma_gather_plain(table, idx)
+    D.require(table, "dma_gather.table")
+    D.require(idx, "dma_gather.idx")
+    if table.data_ptr() % 16:
+        raise ValueError("dma_gather: table is not 16-byte aligned")
+    out = torch.empty((m, R), dtype=torch.int32, device=table.device)
+    rc = D.lib("gather").rs_dma_gather(table.data_ptr(), idx.data_ptr(),
+                                       out.data_ptr(), n, m, R, blk, nsem,
+                                       D.stream(table))
+    D.check(rc, "dma_gather")
+    D.count("dma_gather")
+    return out

@@ -9,6 +9,8 @@ products run as exact 16-bit-limb convolutions in int64.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..ref.field import P as _P, R_FR as _R
@@ -88,6 +90,13 @@ G2_PARAMS = GLVParams(LAM_G2, BETA_G2)
 def params_for(curve) -> GLVParams:
     from .curve import is_g2
     return G2_PARAMS if is_g2(curve) else G1_PARAMS
+
+
+def enabled() -> bool:
+    """Whether ops/msm.msm splits scalars by GLV when its caller does not
+    say: on unless RSTPU_GLV=0. Read at every call (the JAX package
+    caches its first reading)."""
+    return os.environ.get("RSTPU_GLV", "1") != "0"
 
 
 def _const_limbs(v: int, nl: int):

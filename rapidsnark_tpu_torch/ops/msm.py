@@ -250,21 +250,30 @@ def pad_len(n: int) -> int:
 # MSM core
 # ---------------------------------------------------------------------------
 
+def gather_cols(pts, perm):
+    """The MSM's point gather, straight into the scan's column layout.
+
+    pts: packed affine (*b, n, A, 8); perm: (G, *b, n) int64 entry
+    indices (the sort's permutation). Returns (C, G, *b, n/C, A, 8)
+    with column c of chunk k holding pts[perm[k*C + c]]."""
+    bshape = tuple(perm.shape[:-1])
+    nb = perm.shape[-1] // _CHUNK
+    pc = perm.reshape(bshape + (nb, _CHUNK)).movedim(-1, 0)
+    bidx = _batch_index((_CHUNK,) + bshape + (nb,), pts.dim() - 1,
+                        pts.device)[2:]
+    return pts[(*bidx, pc)].contiguous()
+
+
 def _window_group(curve, pts, digits, n: int, c: int):
     """Window totals sum_j j*B_j of a group of windows, telescoped.
 
     pts: packed affine (*b, n, A, 8); digits: (G, *b, n) encoded signed
     digits. Returns packed projective (G, *b, L, 8)."""
     bshape = tuple(digits.shape[:-1])            # (G, *b)
-    nbatch_pts = pts.dim() - 3
     M = 1 << (c - 1)
     C, nb = _CHUNK, n // _CHUNK
     sorted_digits, perm = torch.sort(digits, dim=-1, stable=True)
-    # gather straight into the scan's column layout (C, G, *b, nb)
-    pc = perm.reshape(bshape + (nb, C)).movedim(-1, 0)
-    bidx = _batch_index((C,) + bshape + (nb,), nbatch_pts + 2,
-                        pts.device)[2:]
-    cols = pts[(*bidx, pc)].contiguous()          # (C, G, *b, nb, A, 8)
+    cols = gather_cols(pts, perm)                 # (C, G, *b, nb, A, 8)
     sign = (sorted_digits & 1).to(torch.int32).reshape(
         bshape + (nb, C)).movedim(-1, 0).contiguous()
     within, excl = _chunked_prefix(curve, cols, sign, bshape, nb)
@@ -307,86 +316,154 @@ def _table_slice(curve, pts, off: int, size: int):
     return torch.cat([lower, _phi(curve, pts)], dim=-3)
 
 
+def _pad_word(scalars):
+    """(*b, n, 8) -> (*b, n, 9): the zero pad word group_signed_digits
+    reads past the top window."""
+    return torch.cat([scalars, torch.zeros_like(scalars[..., :1])], dim=-1)
+
+
 def _segmented_groups(sc, pts, scalars, c: int, G_: int, nwin: int,
-                      segment: int):
-    """Window totals by slices of `segment` entries of the virtual
-    [k1 | k2] axis: entry `off` maps to table point off % npts, and every
-    slice adds one point per window into the running totals. No slice
-    straddles the k1/k2 boundary, so each slice's scalars are decomposed
-    on their own and the decomposed stack of the whole axis never
-    exists. Returns the list of per-group totals (G_, *b, L, 8)."""
+                      segment: int, glv: bool):
+    """Window totals by slices of `segment` entries of the entry axis;
+    every slice adds one point per window into the running totals.
+
+    With GLV the axis is the virtual [k1 | k2] one: entry `off` maps to
+    table point off % npts, no slice straddles the k1/k2 boundary, so
+    each slice's scalars are decomposed on their own and the decomposed
+    stack of the whole axis never exists. Without it the axis is the
+    table's. Returns the list of per-group totals (G_, *b, L, 8)."""
     npts = scalars.shape[-2]
     if npts % segment or segment % _CHUNK:
         raise ValueError(f"msm: segment {segment} must divide {npts} points "
                          f"and be a multiple of {_CHUNK}")
     bshape = tuple(scalars.shape[:-2])
-    params = GLV.params_for(sc)
+    bits = GLV.GLV_BITS if glv else SCALAR_BITS
     ngroups = nwin // G_
     accs = [point_inf(sc, (G_,) + bshape, scalars.device)
             for _ in range(ngroups)]
-    for off in range(0, 2 * npts, segment):
-        pseg = _table_slice(sc, pts, off, segment)
+    for off in range(0, 2 * npts if glv else npts, segment):
         offp = off % npts
-        d2, n2 = GLV.decompose(params, scalars[..., offp:offp + segment, :])
-        start = segment if off >= npts else 0
-        s9seg = d2[..., start:start + segment]
-        nseg = n2[..., start:start + segment]
-        cseg = signed_digit_carries(s9seg, c, GLV.GLV_BITS, lead=True)
+        scseg = scalars[..., offp:offp + segment, :]
+        if glv:
+            pseg = _table_slice(sc, pts, off, segment)
+            d2, n2 = GLV.decompose(GLV.params_for(sc), scseg)
+            start = segment if off >= npts else 0
+            s9seg = d2[..., start:start + segment]
+            nseg = n2[..., start:start + segment][None]
+        else:
+            pseg = pts[..., off:off + segment, :, :]
+            s9seg, nseg = _pad_word(scseg), None
+        cseg = signed_digit_carries(s9seg, c, bits, lead=glv)
         for ig in range(ngroups):
-            dseg = group_signed_digits(s9seg, cseg, ig * G_, G_, c, lead=True)
-            t = _window_group(sc, pseg, dseg ^ nseg[None], segment, c)
+            dseg = group_signed_digits(s9seg, cseg, ig * G_, G_, c, lead=glv)
+            if nseg is not None:
+                dseg = dseg ^ nseg
+            t = _window_group(sc, pseg, dseg, segment, c)
             accs[ig] = fused.add(sc, accs[ig], t.contiguous())
     return accs
 
 
+def _iso_scale(curve, pt, back: bool):
+    """Packed projective points (..., 6, 8) between G2's twist and the
+    iso-twist the scan and the add kernel run on: (x*w2, y*w3, z), or
+    with back=True (x/w2, y/w3, z)."""
+    iso = curve.iso_scan.iso
+    x, y, z = unpack_point(curve, pt)
+    sh = tuple(x[0].shape[1:])
+    k2 = FQ2.const(iso["w2i" if back else "w2"], sh, pt.device)
+    k3 = FQ2.const(iso["w3i" if back else "w3"], sh, pt.device)
+    x, y = FQ2.mul_many([(x, k2), (y, k3)])
+    return pack_point((x, y, z))
+
+
+def _horner(curve, wpts, nwin: int, c: int):
+    """sum_w 2^(wc) wpts[w] from the top window down: c doublings (the
+    complete adder on (acc, acc): its tangent path) and one add per
+    window, every step one ops/fused.add. The ladder starts from the top
+    window's total, so the leading identity steps are never launched."""
+    acc = wpts[nwin - 1].contiguous()
+    for w in range(nwin - 2, -1, -1):
+        for _ in range(c):
+            acc = fused.add(curve, acc, acc)
+        acc = fused.add(curve, acc, wpts[w].contiguous())
+    return acc
+
+
+def _combine_windows(curve, wpts, nwin: int, c: int):
+    """Horner combine of the window totals on the device.
+
+    wpts: packed projective (W, *batch, L, 8) on `curve`, as msm returns
+    them with combine=False. Returns one point per batch row,
+    (*batch, L, 8), on `curve`. G2 totals ride the iso-twist through the
+    ladder (the adder serves that twist) and are scaled back at the end."""
+    if getattr(curve, "iso_scan", None) is None:
+        return _horner(curve, wpts, nwin, c)
+    tot = _horner(curve.iso_scan, _iso_scale(curve, wpts, back=False),
+                  nwin, c)
+    return _iso_scale(curve, tot, back=True)
+
+
 def msm(curve, pts, scalars, c: int, window_group: int = 5,
-        combine: bool = False, segment: int = 0, row_slice=None):
-    """Per-window MSM totals, batched over leading axes.
+        combine: bool = False, segment: int = 0, row_slice=None, glv=None):
+    """Multi-scalar multiplication, batched over leading axes.
 
     pts: packed affine (*batch, n, A, 8), n % 256 == 0, (0,0) padding
     (on G2 already rescaled onto the iso-twist, g2_rescale_packed);
     scalars: (*batch, n, 8) packed plain integers. Returns the window
     totals as packed projective points (W, *batch, L, 8) on `curve`,
-    for the Horner combine on the host (combine=False).
+    for the Horner combine on the host (combine=False, the default here:
+    the Prover combines on the host). With combine=True (the JAX
+    package's default) the ladder runs on the device and the result is
+    one packed projective point per batch row, (*batch, L, 8).
 
     `segment` (a multiple of 256 dividing n, 0 = off) runs the scan in
-    2n/segment slices of the GLV entry axis, which bounds the scan's
-    working set (the all-positions prefix is 96-192 bytes per entry per
-    window of a group). `row_slice=(row_lo, nrows)` selects nrows
-    leading-axis rows of a bigger scalar stack (a view, never a copy)."""
-    if combine:
-        raise NotImplementedError(
-            "the device window combine is not ported; combine on the host")
+    slices of the entry axis, which bounds the scan's working set (the
+    all-positions prefix is 96-192 bytes per entry per window of a
+    group). `row_slice=(row_lo, nrows)` selects nrows leading-axis rows
+    of a bigger scalar stack (a view, never a copy).
+
+    `glv` (None: ops/glv.enabled(), i.e. on unless RSTPU_GLV=0) splits
+    every scalar into two 128-bit halves over the 2n-entry virtual table
+    [P, phi(P)]: ceil(128/c) windows. With glv=False the table itself is
+    scanned over ceil(256/c) windows, no phi image and no sign fold."""
+    if glv is None:
+        glv = GLV.enabled()
     if row_slice is not None:
         row_lo, nrows = row_slice
         scalars = scalars[row_lo:row_lo + nrows]
     bshape = tuple(scalars.shape[:-2])
-    n = 2 * scalars.shape[-2]
-    nwin = -(-GLV.GLV_BITS // c)
+    npts = scalars.shape[-2]
+    n = 2 * npts if glv else npts
+    bits = GLV.GLV_BITS if glv else SCALAR_BITS
+    nwin = -(-bits // c)
     G_ = min(window_group, nwin)
     while nwin % G_:
         G_ -= 1
     iso = getattr(curve, "iso_scan", None)
     sc = iso or curve
     if segment and segment < n:
-        groups = _segmented_groups(sc, pts, scalars, c, G_, nwin, segment)
+        groups = _segmented_groups(sc, pts, scalars, c, G_, nwin, segment,
+                                   glv)
     else:
-        s9, neg = GLV.decompose(GLV.params_for(curve), scalars)
-        carries = signed_digit_carries(s9, c, GLV.GLV_BITS, lead=True)
-        p2 = _table_slice(sc, pts, 0, n)
+        if glv:
+            s9, neg = GLV.decompose(GLV.params_for(curve), scalars)
+            neg = neg[None]
+            p2 = _table_slice(sc, pts, 0, n)
+        else:
+            s9, neg, p2 = _pad_word(scalars), None, pts
+        carries = signed_digit_carries(s9, c, bits, lead=glv)
         groups = []
         for ig in range(nwin // G_):
-            dg = group_signed_digits(s9, carries, ig * G_, G_, c, lead=True)
-            groups.append(_window_group(sc, p2, dg ^ neg[None], n, c))
-    wpts = torch.cat(groups, dim=0)                # (W, *b, L, 8)
-    if iso is not None:
-        x, y, z = unpack_point(curve, wpts)
-        sh = tuple(x[0].shape[1:])
-        w2i = FQ2.const(iso.iso["w2i"], sh, wpts.device)
-        w3i = FQ2.const(iso.iso["w3i"], sh, wpts.device)
-        x, y = FQ2.mul_many([(x, w2i), (y, w3i)])
-        wpts = pack_point((x, y, z))
+            dg = group_signed_digits(s9, carries, ig * G_, G_, c, lead=glv)
+            if neg is not None:
+                dg = dg ^ neg
+            groups.append(_window_group(sc, p2, dg, n, c))
+    wpts = torch.cat(groups, dim=0)                # (W, *b, L, 8) on sc
     assert wpts.shape[:1 + len(bshape)] == (nwin,) + bshape
+    if combine:
+        wpts = _horner(sc, wpts, nwin, c)          # (*b, L, 8)
+    if iso is not None:
+        wpts = _iso_scale(curve, wpts, back=True)
     return wpts
 
 

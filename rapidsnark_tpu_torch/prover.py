@@ -73,6 +73,17 @@ def _coord(words) -> int:
     return FQ_CTX.from_mont(_words_int(words))
 
 
+def host_g1(words) -> tuple:
+    """Packed projective G1 words (3, 8) -> host point (x, y, z) ints."""
+    return tuple(_coord(words[k]) for k in range(3))
+
+
+def host_g2(words) -> tuple:
+    """Packed projective G2 words (6, 8) -> host point of Fq2 pairs."""
+    return tuple((_coord(words[2 * k]), _coord(words[2 * k + 1]))
+                 for k in range(3))
+
+
 def _ref_g1(limbs):
     from .utils.limbs import limbs_to_ints
     xi, yi = (FQ_CTX.from_mont(v) for v in limbs_to_ints(limbs))
@@ -113,6 +124,7 @@ class Prover:
         self.c_bits = (window_bits or config.window_bits()
                        or MSM.best_window_bits(self.nmax, self.segment))
         self.window_group = window_group or config.window_group()
+        self.ntt_seq = config.ntt_sequential(self.power)
 
         # point tables: packed affine (rows, nmax, A, 8), the zkey layout
         with self._setup_phase("table_upload"):
@@ -255,6 +267,13 @@ class Prover:
         return ab, cvec
 
     def _cosets(self, ab, cvec, tables):
+        """Evaluations -> odd-coset evaluations (a2, b2, c2). With
+        config.ntt_sequential a, b, c go through one at a time, never
+        stacked, so the transform's temporaries are one polynomial's."""
+        if self.ntt_seq:
+            return tuple(
+                FF.unpack(to_odd_coset(FF.pack(v), tables["ntt"]))
+                for v in (ab[:, 0], ab[:, 1], cvec))
         polys = FF.pack(torch.cat([ab, cvec[:, None]], dim=1))  # (3, N, 8)
         polys = FF.unpack(to_odd_coset(polys, tables["ntt"]))
         return polys[:, 0], polys[:, 1], polys[:, 2]
@@ -322,18 +341,10 @@ class Prover:
         t1 = time.perf_counter()
         nwin = g1w.shape[0]
 
-        def g1_at(w, b):
-            return tuple(_coord(g1w[w, b, k]) for k in range(3))
-
         pih, pi_a, pib1, pi_c = (
-            G1H.combine_windows([g1_at(w, b) for w in range(nwin)],
+            G1H.combine_windows([host_g1(g1w[w, b]) for w in range(nwin)],
                                 self.c_bits) for b in range(4))
-
-        def g2_at(w):
-            return tuple((_coord(g2w[w, 0, 2 * k]),
-                          _coord(g2w[w, 0, 2 * k + 1])) for k in range(3))
-
-        pi_b = G2H.combine_windows([g2_at(w) for w in range(nwin)],
+        pi_b = G2H.combine_windows([host_g2(g2w[w, 0]) for w in range(nwin)],
                                    self.c_bits)
         vk = {k: (G2H if k.endswith("2") else G1H).from_affine(v)
               for k, v in self.ref_vk.items()}

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels of rapidsnark_tpu_torch against their plain
+"""The eight CUDA kernels of rapidsnark_tpu_torch against their plain
 PyTorch versions, on the card (marker `cuda`; each test skips when no
 card is present). This file imports no JAX, so it runs on a machine
 without it:
@@ -160,6 +160,92 @@ def test_segmented_msm_on_card_matches_cpu():
     torch.cuda.synchronize()
     assert D.counts["scan_cols_packed"] == 4
     assert torch.equal(got.cpu(), want)
+
+
+def _gather_case(logn, R, repeats, dev):
+    rs = np.random.RandomState(logn + R)
+    n = 1 << logn
+    table = torch.from_numpy(rs.randint(0, 2**31, size=(n, R),
+                                        dtype=np.int64).astype(np.int32))
+    idx = (rs.randint(0, n // 8, size=n) if repeats
+           else rs.permutation(n)).astype(np.int32)
+    return table.to(dev), torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeats", [False, True])
+@pytest.mark.parametrize("logn,R,blk,nsem", [
+    (18, 16, 512, 16), (21, 16, 512, 16), (21, 32, 512, 16),
+    (18, 16, 256, 4), (12, 4, 64, 64), (12, 8, 4096, 32)])
+def test_dma_gather_kernel_matches_plain(logn, R, blk, nsem, repeats):
+    """A permutation and an index vector that repeats rows, at the
+    tool's default shape, the 2^20 prove's G1 and G2 row shapes, and
+    other (blk, nsem), one of them past 48 KB of staging."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    table, idx = _gather_case(logn, R, repeats, dev)
+    D.reset_counts()
+    got = TFU.dma_gather(table, idx, blk=blk, nsem=nsem)
+    want = TFU.dma_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert D.counts["dma_gather"] == 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dma_gather_refuses_on_card():
+    dev = _dev()
+    table, idx = _gather_case(12, 16, False, dev)
+    for bad in ((table, idx[:4000], {}),                     # ragged m
+                (table, idx, {"blk": 512, "nsem": 24}),
+                (table.t().contiguous().t(), idx, {}),       # strided
+                (table, idx.cpu(), {})):
+        with pytest.raises(ValueError, match="dma_gather"):
+            TFU.dma_gather(bad[0], bad[1], **bad[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True])
+def test_combine_windows_on_card_matches_host_combine(g2):
+    """_combine_windows through the add kernel on the card against the
+    host's Horner combine of the same points (z = 1, one infinity),
+    equal after affine normalisation; (nwin - 1)(c + 1) add launches."""
+    dev = _dev()
+    import random
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    from rapidsnark_tpu_torch.ref import curve as refc
+    from rapidsnark_tpu_torch.ref.field import FQ_CTX, R_FR as R
+    from rapidsnark_tpu_torch.utils import points as PT
+    from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
+    nwin, c = 10, 13
+    rng = random.Random(7)
+    grp, gen = (refc.G2, refc.G2_GEN) if g2 else (refc.G1, refc.G1_GEN)
+    pts = [grp.mul(gen, rng.randrange(1, R)) for _ in range(nwin)]
+    pts[3] = None
+    conv = PT.g2_affine_to_mont_limbs if g2 else PT.g1_affine_to_mont_limbs
+    arr = np.stack([conv(p) for p in pts]).astype(np.uint32)   # (W, A, 16)
+    words = arr[..., 0::2] | (arr[..., 1::2] << 16)
+    one = np.array([(((1 << 256) % P) >> (32 * i)) & 0xFFFFFFFF
+                    for i in range(8)], np.uint32)
+    z = np.zeros((nwin, 2 if g2 else 1, 8), np.uint32)
+    z[:, 0] = one
+    z[3] = 0
+    words[3, 2 if g2 else 1] = one                             # (0, 1, 0)
+    wpts = torch.from_numpy(np.concatenate([words, z], axis=1)[:, None]
+                            .view(np.int32)).to(dev)
+    curve, H = (G2P, G2H) if g2 else (G1P, G1H)
+    D.reset_counts()
+    tot = TM._combine_windows(curve, wpts, nwin, c)
+    torch.cuda.synchronize()
+    assert D.counts["add"] == (nwin - 1) * (c + 1)
+    host = H.to_affine(H.combine_windows([H.from_affine(p) for p in pts], c))
+    w = tot.cpu().numpy().view(np.uint32)[0]
+    ints = [FQ_CTX.from_mont(sum(int(v) << (32 * i) for i, v in enumerate(k)))
+            for k in w]
+    got = H.to_affine(((ints[0], ints[1]), (ints[2], ints[3]),
+                       (ints[4], ints[5])) if g2 else tuple(ints))
+    assert grp.eq(got, host)
 
 
 @pytest.mark.cuda

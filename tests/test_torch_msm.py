@@ -27,6 +27,9 @@ from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
 
 from test_torch_field import limbs, rand_vals
 
+# one intra-op thread per test process (see test_torch_field.py)
+torch.set_num_threads(1)
+
 
 def _scalar_words(n, batch=(), seed=0):
     """(*batch, n, 8) uint32 words of scalars < r (a few zeros/ones)."""
@@ -173,9 +176,91 @@ def test_segmented_window_bits_match_jax():
         assert TCFG.msm_segment(n) == JCFG.msm_segment(n)
 
 
-def test_unported_options_raise():
+def _jax_table(table, g2):
+    """(rows, n, A, 8) words -> the JAX package's packed point pytree
+    (G2 on the iso-twist)."""
+    cs = [jnp.asarray(np.moveaxis(table[:, :, k], -1, 0))
+          for k in range(table.shape[2])]
+    if g2:
+        return JM.g2_rescale_packed(((cs[0], cs[1]), (cs[2], cs[3])))
+    return tuple(cs)
+
+
+def _affine_point(pt, g2, b):
+    """The port's combined result (rows, L, 8) -> affine host point."""
+    return _affine_window(pt[None], g2, 0, b)
+
+
+def _affine_point_jax(out, g2, b):
+    """The JAX package's combined result (leaves (16, rows))."""
+    lift = lambda e: np.asarray(e)[:, None]  # noqa: E731
+    if g2:
+        out = tuple(tuple(lift(e) for e in c) for c in out)
+    else:
+        out = tuple(lift(c) for c in out)
+    return _affine_window_jax(out, g2, 0, b)
+
+
+def _check_combined_point(g2, glv):
+    """msm(combine=True), c = 8 over 256 points in 16-window groups: one
+    point per row, group-equal to the JAX package's msm with the same
+    arguments and to the oracle MSM."""
+    n, c, G = 256, 8, 16
+    rows = 1 if g2 else 2
+    pts, words = _points(g2, n, seed=12)
+    sc = _scalar_words(n, (rows,), seed=13)
+    table = np.broadcast_to(words, (rows,) + words.shape).copy()
+    curve_j, curve_t = (JG2P, G2P) if g2 else (JG1P, G1P)
+    tpts = TM.g2_rescale_packed(_t(table)) if g2 else _t(table)
+    want = jax.jit(lambda p, s: JM.msm(curve_j, p, s, c, G, combine=True,
+                                       glv=glv))(
+        _jax_table(table, g2), jnp.asarray(sc))
+    got = TM.msm(curve_t, tpts, _t(sc), c, G, combine=True, glv=glv)
+    assert got.shape == (rows, 6 if g2 else 3, 8)
+    got = got.numpy().view(np.uint32)
+    grp = refc.G2 if g2 else refc.G1
+    for b in range(rows):
+        assert grp.eq(_affine_point(got, g2, b),
+                      _affine_point_jax(want, g2, b))
+    ks = [int.from_bytes(sc[0, i].tobytes(), "little") for i in range(n)]
+    assert grp.eq(_affine_point(got, g2, 0), grp.msm(pts, ks))
+
+
+def test_glv_switch_reads_environment(monkeypatch):
+    """glv=None follows RSTPU_GLV as ops/glv.enabled reads it: ceil(128/c)
+    windows with it, ceil(256/c) without (an all-infinity table, whose
+    columns the plain scan skips)."""
     pts = _t(np.zeros((1, 256, 2, 8), np.uint32))
     sc = _t(np.zeros((1, 256, 8), np.uint32))
-    for kw in ({"combine": True},):
-        with pytest.raises(NotImplementedError):
-            TM.msm(G1P, pts, sc, 4, **kw)
+    monkeypatch.delenv("RSTPU_GLV", raising=False)
+    assert TG.enabled() and TM.msm(G1P, pts, sc, 8, 16).shape[0] == 16
+    monkeypatch.setenv("RSTPU_GLV", "0")
+    assert not TG.enabled()
+    assert TM.msm(G1P, pts, sc, 8, 16).shape[0] == 32
+    assert TM.msm(G1P, pts, sc, 8, 16, glv=True).shape[0] == 16
+    from rapidsnark_tpu_torch import config as TCFG
+    from rapidsnark_tpu import config as JCFG
+    for env in (None, "0", "1"):
+        if env is None:
+            monkeypatch.delenv("RSTPU_NTT_SEQ", raising=False)
+        else:
+            monkeypatch.setenv("RSTPU_NTT_SEQ", env)
+        for power in (20, 22, 23, 24):
+            assert TCFG.ntt_sequential(power) == JCFG.ntt_sequential(power)
+
+
+def test_unported_options_raise():
+    """No option of msm is left unported: combine=True, which used to
+    raise NotImplementedError, returns one point per row (the identity
+    for zero scalars). What still raises is a segment the entry axis
+    cannot be cut by, with GLV or without."""
+    pts = _t(np.zeros((1, 256, 2, 8), np.uint32))
+    sc = _t(np.zeros((1, 256, 8), np.uint32))
+    for kw in ({"combine": True}, {"combine": True, "glv": False}):
+        out = TM.msm(G1P, pts, sc, 8, 16, **kw)
+        assert out.shape == (1, 3, 8)
+        assert _affine_point(out.numpy().view(np.uint32), False, 0) is None
+    for kw in ({"segment": 192}, {"segment": 192, "glv": False},
+               {"segment": 100, "glv": False}):
+        with pytest.raises(ValueError, match="segment"):
+            TM.msm(G1P, pts, sc, 8, 16, **kw)

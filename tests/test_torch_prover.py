@@ -116,6 +116,33 @@ def test_segmented_proof_byte_identical(monkeypatch):
     assert publics == jpub
 
 
+def test_sequential_ntt_rows_word_identical(monkeypatch):
+    """RSTPU_NTT_SEQ=1 (a, b, c transformed one at a time): the rows of
+    sqchain64 equal the stacked configuration's and the JAX package's
+    Prover.front under the same switch, word for word."""
+    zk, wt = _load("sqchain64")
+    monkeypatch.setenv("RSTPU_NTT_SEQ", "0")
+    stacked = Prover(zk, window_bits=4, device="cpu")
+    monkeypatch.setenv("RSTPU_NTT_SEQ", "1")
+    seq = Prover(zk, window_bits=4, device="cpu")
+    assert seq.ntt_seq and not stacked.ntt_seq
+    calls = []
+    import rapidsnark_tpu_torch.prover as tprover
+    real = tprover.to_odd_coset
+    monkeypatch.setattr(tprover, "to_odd_coset",
+                        lambda x, a: calls.append(tuple(x.shape)) or real(x, a))
+    rows_seq = seq.front(_wit(wt.values), seq.tables())
+    rows_stacked = stacked.front(_wit(wt.values), stacked.tables())
+    n = zk.domain_size
+    assert calls == [(n, 8)] * 3 + [(3, n, 8)]
+    assert torch.equal(rows_seq, rows_stacked)
+    jzk = j_read_zkey(os.path.join(FIXTURES, "sqchain64.zkey"))
+    jp = JProver(jzk, window_bits=4)
+    assert jp.ntt_seq
+    want = np.asarray(jp._front_jit(jnp.asarray(wt.values), jp.tables()))
+    assert np.array_equal(rows_seq.numpy().view(np.uint32), want)
+
+
 def test_release_drops_tables():
     zk, _ = _load("multiplier")
     prover = Prover(zk, window_bits=4, device="cpu")
