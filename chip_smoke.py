@@ -8,25 +8,34 @@ them, or when run away from the repository. Phases, in order; any
 failure exits non-zero:
   1. the card's name and power limit, torch / CUDA versions, and the
      build of the three kernel libraries (all nvcc processes started
-     together);
+     together) with each kernel's registers, stack frame and spills,
+     `nvcc --version`, and per curve kernel the SASS counts of IMAD*,
+     IADD3* and all instructions per Montgomery product (cuobjdump;
+     skipped with a line where it is missing);
   2. each of the eight kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed with CUDA events beside the plain version and the
      least time the card could take (bound), at every shape the paths
      below give it: the whole-axis 2^20 prove's, the segmented 2^22
-     prove's (a slice's scan, the narrow cross-slice add, every fused
-     pass over 3 x 2^22), and for dma_gather the tool's default rows and
-     the 2^20 prove's G1 and G2 rows, with a permutation and with
-     repeated rows, beside torch.index_select (library_ms);
+     prove's (a slice's scan, every width `add` is launched at with its
+     launches per 2^20 prove and per slice, every fused pass over 3 x
+     2^22), and for dma_gather the tool's default rows and the 2^20
+     prove's G1 and G2 rows, with a permutation and with repeated rows,
+     beside torch.index_select (library_ms). `add` is timed alone (its C
+     entry point back to back: a narrow launch takes less time than the
+     wrapper's Python) and through its wrapper; each scan and add shape
+     prints its launch geometry (threads and blocks, resident blocks per
+     SM from the occupancy API, waves);
   3. prove the committed tests/fixtures/sqchain64 through the CLI entry
      point and pairing-verify (the small circuit's NTTs run
      ntt_butterfly);
   4. generate bench_fixtures/sqchain1048576.{zkey,wtns} on the card and
      prove it through the CLI entry point (cold), then once more on the
-     loaded Prover (warm); the proof must pairing-verify, and add /
+     loaded Prover (warm); the proof must pairing-verify, add /
      scan_cols_packed / ntt_fused_pass must each have launched during
-     the first prove. On the loaded Prover: the window totals through
+     the first prove, at the add widths phase 2 timed. On the loaded
+     Prover: the window totals through
      the device combine (ops/msm._combine_windows) against the host
      combine; msm(glv=False) against msm(glv=True) on 2^16 points of the
      same tables; and RSTPU_NTT_SEQ=1 (a, b, c transformed one at a
@@ -50,9 +59,9 @@ failure exits non-zero:
   8. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
      through the CLI entry point with the segmented MSM (cold), then on
-     the loaded Prover (warm); the proof must pairing-verify and
+     the loaded Prover (warm); the proof must pairing-verify,
      scan_cols_packed must have launched once per slice per window group
-     per MSM call;
+     per MSM call, and add at the widths phase 2 timed;
   9. a `kernels` JSON line, the card line, and the result line last.
 
 Bounds: bytes over 3.35 TB/s (each input read once, each output written
@@ -64,9 +73,12 @@ digits); additions are not counted. dma_gather does no arithmetic: its
 bound is its bytes (rows read and written once, 4 bytes an index).
 """
 
+import ctypes
 import hashlib
 import json
 import os
+import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -74,6 +86,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -101,6 +114,78 @@ def bound_ms(nbytes, imads):
     tb = nbytes / HBM_BYTES_PER_S
     to = imads / IMAD_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+# Montgomery products in the code of one thread of each curve kernel (one
+# add, or one scan column; a G2 lane's two threads run two Fq products
+# for each of its 12 / 11 Fq2 products), the divisor of its SASS counts
+KERNEL_MONTS = {"k_add_g1": 17, "k_add_g2": 24, "k_scan_g1": 14,
+                "k_scan_g2": 22}
+SASS_LINE = re.compile(
+    r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_report(exe_dir, libpath):
+    """Per curve kernel of the built library: the SASS counts of IMAD*,
+    IADD3* and all instructions (NOPs left out), each divided by the
+    kernel's Montgomery products. Skipped, with a line, without
+    cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(exe_dir, "cuobjdump")
+    if not os.path.exists(exe):
+        log("  sass: cuobjdump not found; SASS counts skipped")
+        return
+    out = subprocess.run([exe, "-sass", libpath], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = Counter()
+            continue
+        m = SASS_LINE.search(line)
+        if fn is None or m is None or m.group(1).startswith("NOP"):
+            continue
+        op = m.group(1)
+        counts[fn]["all"] += 1
+        for k in ("IMAD", "IADD3"):
+            if op.startswith(k):
+                counts[fn][k] += 1
+    for fn, c in sorted(counts.items()):
+        name = next((k for k in KERNEL_MONTS if k in fn), None)
+        if name is None:
+            continue
+        m = KERNEL_MONTS[name]
+        log(f"  sass[{fn}]: IMAD* {c['IMAD']} IADD3* {c['IADD3']} all "
+            f"{c['all']}; per Montgomery product ({m}): IMAD* "
+            f"{c['IMAD'] / m:.1f} IADD3* {c['IADD3'] / m:.1f} all "
+            f"{c['all'] / m:.1f}")
+
+
+def add_widths(rows, nb, M):
+    """{lanes: launches} of ops/fused.add in one ops/msm._window_group
+    call over `rows` rows (window group x table rows) of nb chunks and
+    2^(c-1) = M buckets: _prefix_2level, _ps_at, diff, _tree_total."""
+    w = Counter()
+
+    def hillis(lanes, size):
+        w[lanes * size] += (size - 1).bit_length() if size > 1 else 0
+
+    if nb <= 64 or nb & (nb - 1):
+        hillis(rows, nb)
+    else:
+        bi = 1 << ((nb.bit_length() + 1) // 2)
+        hillis(rows * (nb // bi), bi)
+        hillis(rows, nb // bi)
+        w[rows * nb] += 1
+    w[rows * (M + 1)] += 1
+    w[rows * M] += 1
+    size = M
+    if size > 64 and not size & (size - 1):
+        while size > 64:
+            size //= 2
+            w[rows * size] += 1
+    hillis(rows, size)
+    return w
 
 
 def main() -> int:
@@ -141,9 +226,20 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"phase1 build: {build_s:.2f}s for {sorted(logs)}")
     for src, text in logs.items():
+        fn = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{src}]: {line.strip()}")
+            m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+            if m:
+                fn = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas[{src}] {fn}: "
+                    f"{line.split('ptxas info    :')[-1].strip()}")
+    nv = subprocess.run([D.nvcc(), "--version"], capture_output=True,
+                        text=True, timeout=60)
+    log("phase1 nvcc --version:", " | ".join(
+        ln.strip() for ln in nv.stdout.splitlines() if ln.strip()))
+    sass_report(os.path.dirname(D.nvcc()),
+                os.path.join(D.BUILD, "libcurve.so"))
 
     # ---------------------------------------------------------- phase 2 --
     rng = np.random.RandomState(2024)
@@ -199,18 +295,23 @@ def main() -> int:
     results = {}
     failures = []
 
-    def record(name, key, e, ms, plain_ms, nbytes, imads, library_ms=None):
+    def record(name, key, e, ms, plain_ms, nbytes, imads, library_ms=None,
+               **extra):
+        """One timed case; `extra` (launches, geometry) joins its entry.
+        Returns the bound in ms."""
         b, by = bound_ms(nbytes, imads)
         ent = results.setdefault(name, {"max_abs_err": 0, "cases": []})
         ent["max_abs_err"] = max(ent["max_abs_err"], e)
         ent["cases"].append({"case": key, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": b, "bound_by": by,
-                             "library_ms": library_ms})
+                             "library_ms": library_ms, **extra})
         log(f"  {name}[{key}]: err {e} kernel {ms:.4f} ms plain "
-            f"{plain_ms} ms bound {b:.4f} ms ({by})"
-            + ("" if library_ms is None else f" library {library_ms:.4f} ms"))
+            f"{plain_ms} ms bound {b:.4f} ms ({by}) share {b / ms:.3f}"
+            + ("" if library_ms is None else f" library {library_ms:.4f} ms")
+            + "".join(f" {k} {v}" for k, v in extra.items()))
         if e != 0:
             failures.append(f"{name}[{key}] disagrees (max err {e})")
+        return b
 
     def check_only(name, key, e):
         ent = results.setdefault(name, {"max_abs_err": 0, "cases": []})
@@ -236,16 +337,56 @@ def main() -> int:
     if not seg or (1 << LOGN_SEG) % seg:
         raise RuntimeError(f"2^{LOGN_SEG} points do not segment ({seg})")
     seg_lanes = {G1P: seg_G * 4 * (seg // 256), G2P_ISO: seg_G * (seg // 256)}
+    # add's widths and launches: a 2^20 prove runs _window_group on both
+    # curves once per window group; a 2^22 slice does the same with its
+    # own chunks and adds one point per window into the running totals
+    groups_big = -(-GLV_BITS // c) // G
+    seg_groups = seg_nwin // seg_G
+    add_launches = {}
+    for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
+        big, sl = Counter(), Counter()
+        for _ in range(groups_big):
+            big.update(add_widths(G * rows, nb, M))
+        for _ in range(seg_groups):
+            sl.update(add_widths(seg_G * rows, seg // 256,
+                                 1 << (seg_c - 1)))
+            sl[seg_G * rows] += 1
+        add_launches[curve] = {"2^20 prove": big, "2^22 slice": sl}
     seg_add_lanes = {G1P: seg_G * 4, G2P_ISO: seg_G}
     coords = {G1P: 3, G2P_ISO: 6, G2P: 6}
     mont_add = {G1P: 17, G2P_ISO: 36}
     mont_mixed = {G1P: 14, G2P_ISO: 33}
 
+    curve_lib = D.lib("curve")
+    curve_lib.rs_curve_geometry.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    curve_lib.rs_curve_geometry.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def geometry(op, curve, n):
+        """The launch of rs_add (op 0) / rs_scan_cols (op 1) for n lanes:
+        threads a block, blocks, resident blocks per SM, waves."""
+        buf = (ctypes.c_int * 3)()
+        rc = curve_lib.rs_curve_geometry(op, fused._curve_id(curve), n, buf)
+        if rc:
+            raise RuntimeError(f"rs_curve_geometry failed with error {rc}")
+        threads, blocks, per_sm = buf
+        return {"threads": threads, "blocks": blocks,
+                "blocks_per_sm": per_sm,
+                "waves": blocks / (per_sm * sms) if per_sm else None}
+
     log("phase2: kernels vs plain versions")
     for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
         L = coords[curve]
-        # add: a small adversarial-free random batch, then the main shape
-        for n in (1000, add_lanes[curve], seg_add_lanes[curve]):
+        # add: a small random batch, then every width a 2^20 prove and a
+        # 2^22 slice launch it at (the main shape first), each with its
+        # launches there
+        runs_n = add_launches[curve]
+        shapes = sorted(set(runs_n["2^20 prove"]) | set(runs_n["2^22 slice"])
+                        | {add_lanes[curve]}, reverse=True)
+        shapes.remove(add_lanes[curve])
+        per_run = {r: [0, 0.0, 0.0, 0.0] for r in runs_n}
+        for n in [1000, add_lanes[curve]] + shapes:
             p, q = fe(P, (n, L)), fe(P, (n, L))
             want, plain_ms = timed_once(lambda: fused.add_plain(curve, p, q))
             got = fused.add(curve, p, q)
@@ -254,10 +395,29 @@ def main() -> int:
             if n == 1000:
                 check_only("add", f"{tag} n={n}", e)
                 continue
-            ms = timed(lambda: fused.add(curve, p, q),
-                       20 if n == add_lanes[curve] else 200)
-            record("add", f"{tag} n={n}", e, ms, plain_ms,
-                   3 * n * L * 32, n * mont_add[curve] * MONT_IMADS)
+            # the kernel alone: its C entry point back to back (a narrow
+            # launch takes less time than the wrapper's Python); then
+            # through the wrapper, as ops/msm calls it
+            reps = 20 if n >= 40960 else 200
+            args = (fused._curve_id(curve), p.data_ptr(), q.data_ptr(),
+                    got.data_ptr(), n, D.stream(p))
+            D.check(curve_lib.rs_add(*args), "add")
+            ms = timed(lambda: curve_lib.rs_add(*args), reps)
+            call_ms = timed(lambda: fused.add(curve, p, q), reps)
+            launches = {r: cnt[n] for r, cnt in runs_n.items()}
+            b = record("add", f"{tag} n={n}", e, ms, plain_ms,
+                       3 * n * L * 32, n * mont_add[curve] * MONT_IMADS,
+                       call_ms=call_ms, launches=launches,
+                       **geometry(0, curve, n))
+            for r, k in launches.items():
+                per_run[r][0] += k
+                per_run[r][1] += k * ms
+                per_run[r][2] += k * b
+                per_run[r][3] += k * call_ms
+        for r, (k, t, b, c) in per_run.items():
+            log(f"  add {tag} per {r}: {k} launches {t:.4f} ms, bound "
+                f"{b:.4f} ms, launches x (ms - bound) {t - b:.4f} ms; "
+                f"through the wrapper {c:.4f} ms")
         # scan_cols_packed: K in {1, 2, 256}, signs set, some infinities
         A = L - L // 3
         for K, n in ((1, 1000), (2, 1000), (256, 1000),
@@ -281,7 +441,8 @@ def main() -> int:
             record("scan_cols_packed", f"{tag} K={K} n={n}", e, ms,
                    plain_ms,
                    n * L * 32 + K * n * (A * 32 + 4 + L * 32),
-                   K * n * mont_mixed[curve] * MONT_IMADS)
+                   K * n * mont_mixed[curve] * MONT_IMADS,
+                   **geometry(1, curve, n))
             del acc, cols, sign
         torch.cuda.empty_cache()
 
@@ -629,6 +790,36 @@ def main() -> int:
             "stacked_front_s": front_s2}
         return out
 
+    # add's launches by (G1?, lanes) while a prove runs: the widths that
+    # phase 2 timed must be the widths the prove launches
+    seen_adds = Counter()
+    real_add = fused.add
+
+    def logged_add(curve, p, q):
+        seen_adds[(curve is G1P, p.numel() // (coords[curve] * 8))] += 1
+        return real_add(curve, p, q)
+
+    def logged_prove(*args):
+        seen_adds.clear()
+        fused.add = logged_add
+        try:
+            return prove_and_verify(*args)
+        finally:
+            fused.add = real_add
+
+    def check_widths(run, times):
+        for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
+            want = Counter({n: k * times
+                            for n, k in add_launches[curve][run].items()})
+            got = Counter({n: k for (g1, n), k in seen_adds.items()
+                           if g1 == (curve is G1P)})
+            if got != want:
+                raise RuntimeError(f"{run} x {times}: {tag} add widths "
+                                   f"{dict(got)}, phase 2 timed "
+                                   f"{dict(want)}")
+        log(f"  add widths and launches as phase 2 timed them ({run} x "
+            f"{times})")
+
     # ---------------------------------------------------------- phase 4 --
     log(f"phase4: generate sqchain{1 << LOGN_BIG} on the card")
     fixdir = os.path.join(HERE, "bench_fixtures")
@@ -638,9 +829,10 @@ def main() -> int:
     log(f"  generated in {gen_s:.1f}s sha256 "
         f"{json.dumps(sha256s(zpath, wpath))}")
     D.reset_counts()
-    cold, peak, prover = prove_and_verify(zpath, wpath, "big_cold")
+    cold, peak, prover = logged_prove(zpath, wpath, "big_cold")
     big_counts = dict(D.counts)
     log("  launches:", json.dumps(big_counts))
+    check_widths("2^20 prove", 1)
     need(big_counts, ("add", "scan_cols_packed", "ntt_fused_pass"),
          f"the 2^{LOGN_BIG} prove")
     warm, peak2 = warm_prove(prover, zpath, wpath, "big_warm")
@@ -881,12 +1073,13 @@ def main() -> int:
     need(gen_counts, ("add_mixed_packed", "add_mixed"),
          f"the 2^{LOGN_SEG} fixture generator")
     D.reset_counts()
-    seg_cold, seg_peak, prover = prove_and_verify(zpath, wpath, "seg_cold")
+    seg_cold, seg_peak, prover = logged_prove(zpath, wpath, "seg_cold")
     seg_counts = dict(D.counts)
     nwin = -(-GLV_BITS // prover.c_bits)
     groups = nwin // max(g for g in range(1, prover.window_group + 1)
                          if nwin % g == 0)
     slices = 2 * prover.nmax // prover.segment if prover.segment else 1
+    check_widths("2^22 slice", slices)
     log(f"  segment {prover.segment} c_bits {prover.c_bits} slices {slices} "
         f"window groups {groups} launches {json.dumps(seg_counts)}")
     if (prover.nmax, prover.segment, prover.c_bits, nwin // groups) != \

@@ -11,25 +11,33 @@
 // fused.py:170 `add_mixed` (all through `_binary`, the pallas_call at
 // fused.py:142).
 //
-// What bounds them on the H100: 32-bit integer multiply-adds. One G1
-// mixed add is 14 Montgomery products of 8 x 8 limbs (~264 IMADs each:
-// the a*b and m*p passes, low and high halves) against 64 + 96 bytes
-// moved, far above the card's ~5 IMADs per byte; a G2 add is ~2.4x that
-// work (33 Fq products).
-// So the design keeps every coordinate in registers and touches device
-// memory only for its operands and results:
-//   * add: one thread per lane, the RCB formula fully in registers;
-//     the ragged edge is masked in the kernel (no padding).
-//   * scan_cols_packed: one thread per lane keeps the projective
-//     accumulator in registers across all K columns of a launch (the
-//     TPU's sequential grid covered 1-2 columns per launch; here one
-//     launch loops over the whole C = 256-column chunk) and writes every
-//     intermediate accumulator, which the MSM's prefix sums need.
-//   * add_mixed_packed / add_mixed: one thread per lane, 11 Fq products
-//     on G1 and 39 on G2 (13 Fq2 products by Karatsuba) against 160-448
-//     bytes moved, so they too are bound by the multiply-adds; `add_mixed`
-//     reads its affine operand as 16 limbs per coordinate and packs limb
-//     pairs in registers, the rest is shared.
+// What bounds them on the H100: 32-bit integer multiply-adds, and on G2
+// the latency of their dependent chains. A Montgomery product (field.cuh)
+// is two carry chains of mad.lo/madc.hi, which ptxas fuses into about
+// 136 wide IMADs, plus some 50 other instructions. A G1 mixed add is 14
+// products, a G2 one 11 Fq2 products, against 64-288 bytes moved, far
+// above the card's ~5 IMADs per byte. So every coordinate stays in
+// registers, device memory holds only operands and results, and:
+//   * G1, one thread a lane, 128 threads a block, <= 128 registers: four
+//     blocks an SM, and the scan issues IMADs at close to the card's rate.
+//   * G2, two threads a lane, each holding one Fq2 component of every
+//     value (see "G2, one component a thread"): a thread's chain of a
+//     column is two thirds of a one-thread lane's, and at <= 168
+//     registers (a cap that costs a few spilled words) six blocks of 64
+//     threads fit an SM, twelve warps where one thread a lane (255
+//     registers) left eight, too few to cover the chains' latency.
+//   * scan_cols_packed: a lane's accumulator stays in registers across
+//     all K columns of a launch (the TPU's sequential grid covered 1-2
+//     columns per launch; here one launch loops over the whole C = 256
+//     column chunk), every intermediate accumulator is written (the MSM's
+//     prefix sums need them), and column k+1 is copied into shared memory
+//     with cp.async while column k is added. A (0,0) column leaves the
+//     accumulator as it is, without its arithmetic where a whole warp's
+//     lanes have one.
+//   * add_mixed_packed / add_mixed: one thread a lane, 11 Fq products on
+//     G1 and 39 on G2 (13 Fq2 products by Karatsuba); `add_mixed` reads
+//     its affine operand as 16 limbs per coordinate and packs limb pairs
+//     in registers, the rest is shared.
 // Points are element-major packed words: a lane's point is L x 8
 // contiguous u32 (L = 3 for G1, 6 for G2: x0 x1 y0 y1 z0 z1), loaded as
 // 16-byte vectors.
@@ -72,7 +80,8 @@ __device__ __forceinline__ void g1_add_rx(P1& r, const P1& p, const P1& q) {
   f_add_rx<FQ_ID>(r.z, m2, m1);
 }
 
-// projective (<= 2p) + canonical affine (x2, y2); (0,0) = infinity
+// projective (<= 2p) + canonical affine (x2, y2), which the caller has
+// checked is not (0,0); r may alias p
 __device__ __forceinline__ void g1_add_mixed_rx(P1& r, const P1& p,
                                                 const u32 x2[8],
                                                 const u32 y2[8]) {
@@ -92,26 +101,16 @@ __device__ __forceinline__ void g1_add_mixed_rx(P1& r, const P1& p,
   mont<FQ_ID>(y3b, y3l, K_C9);
   f_add_rx<FQ_ID>(z3, t1, t2b);
   f_sub_rx<FQ_ID>(t1m, t1, t2b);
-  bool q_inf = is_zero8(x2) && is_zero8(y2);
-  u32 m1[8], m2[8], o[8];
+  u32 m1[8], m2[8];
   mont<FQ_ID>(m1, t4, y3b);
   mont<FQ_ID>(m2, t3, t1m);
-  f_sub_rx<FQ_ID>(o, m2, m1);
-  u32 ox[8];
-  cp8(ox, o);
+  f_sub_rx<FQ_ID>(r.x, m2, m1);
   mont<FQ_ID>(m1, y3b, t0_3);
   mont<FQ_ID>(m2, t1m, z3);
-  u32 oy[8];
-  f_add_rx<FQ_ID>(oy, m2, m1);
+  f_add_rx<FQ_ID>(r.y, m2, m1);
   mont<FQ_ID>(m1, t0_3, t3);
   mont<FQ_ID>(m2, z3, t4);
-  f_add_rx<FQ_ID>(o, m2, m1);
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    r.x[i] = q_inf ? p.x[i] : ox[i];
-    r.y[i] = q_inf ? p.y[i] : oy[i];
-    r.z[i] = q_inf ? p.z[i] : o[i];
-  }
+  f_add_rx<FQ_ID>(r.z, m2, m1);
 }
 
 // 9 * t, canonical: three doublings and an add
@@ -171,69 +170,17 @@ struct P2 {
   Fe2 x, y, z;
 };
 
-// b3 * t. ISO: the iso-twist's b3 = 3 + 27i as a shift-add chain,
-// (3t0 - 27t1, 27t0 + 3t1); else the zkey twist's b3 = 9/(9+i), a full
-// Fq2 product by the constant.
-template <bool ISO>
+// b3 * t for the zkey's own twist: b3 = 9/(9+i), a full Fq2 product by the
+// constant
 __device__ __forceinline__ void g2_mul_b3(Fe2& r, const Fe2& t) {
-  if constexpr (ISO) {
-    Fe2 s3, s27, d;
-    f2_dbl(d, t);
-    f2_add(s3, d, t);
-    f2_dbl(d, s3);
-    f2_dbl(d, d);
-    f2_dbl(d, d);
-    f2_add(s27, d, s3);
-    f_sub<FQ_ID>(r.c0, s3.c0, s27.c1);
-    f_add<FQ_ID>(r.c1, s27.c0, s3.c1);
-  } else {
-    Fe2 b3;
-    cp8(b3.c0, K_B3_G2[0]);
-    cp8(b3.c1, K_B3_G2[1]);
-    f2_mul(r, t, b3);
-  }
+  Fe2 b3;
+  cp8(b3.c0, K_B3_G2[0]);
+  cp8(b3.c1, K_B3_G2[1]);
+  f2_mul(r, t, b3);
 }
 
-__device__ __forceinline__ void g2_add(P2& r, const P2& p, const P2& q) {
-  Fe2 t0, t1, t2, s, u, t3, t4, t5;
-  f2_mul(t0, p.x, q.x);
-  f2_mul(t1, p.y, q.y);
-  f2_mul(t2, p.z, q.z);
-  f2_add(s, p.x, p.y);
-  f2_add(u, q.x, q.y);
-  f2_mul(t3, s, u);
-  f2_sub(t3, t3, t0);
-  f2_sub(t3, t3, t1);
-  f2_add(s, p.y, p.z);
-  f2_add(u, q.y, q.z);
-  f2_mul(t4, s, u);
-  f2_sub(t4, t4, t1);
-  f2_sub(t4, t4, t2);
-  f2_add(s, p.x, p.z);
-  f2_add(u, q.x, q.z);
-  f2_mul(t5, s, u);
-  f2_sub(t5, t5, t0);
-  f2_sub(t5, t5, t2);
-  Fe2 t0_3, t2b, y3b, z3, t1m;
-  f2_dbl(t0_3, t0);
-  f2_add(t0_3, t0_3, t0);
-  g2_mul_b3<true>(t2b, t2);
-  g2_mul_b3<true>(y3b, t5);
-  f2_add(z3, t1, t2b);
-  f2_sub(t1m, t1, t2b);
-  Fe2 m1, m2;
-  f2_mul(m1, t4, y3b);
-  f2_mul(m2, t3, t1m);
-  f2_sub(r.x, m2, m1);
-  f2_mul(m1, y3b, t0_3);
-  f2_mul(m2, t1m, z3);
-  f2_add(r.y, m2, m1);
-  f2_mul(m1, t0_3, t3);
-  f2_mul(m2, z3, t4);
-  f2_add(r.z, m2, m1);
-}
-
-template <bool ISO>
+// the strict law on G2's own twist: canonical projective + canonical affine
+// (x2, y2), which the caller has checked is not (0,0)
 __device__ __forceinline__ void g2_add_mixed(P2& r, const P2& p,
                                              const Fe2& x2, const Fe2& y2) {
   Fe2 t0, t1, s, u, t3, t4, y3l;
@@ -251,28 +198,153 @@ __device__ __forceinline__ void g2_add_mixed(P2& r, const P2& p,
   Fe2 t0_3, t2b, y3b, z3, t1m;
   f2_dbl(t0_3, t0);
   f2_add(t0_3, t0_3, t0);
-  g2_mul_b3<ISO>(t2b, p.z);
-  g2_mul_b3<ISO>(y3b, y3l);
+  g2_mul_b3(t2b, p.z);
+  g2_mul_b3(y3b, y3l);
   f2_add(z3, t1, t2b);
   f2_sub(t1m, t1, t2b);
-  bool q_inf = f2_is_zero(x2) && f2_is_zero(y2);
-  Fe2 m1, m2, ox, oy, oz;
+  Fe2 m1, m2;
   f2_mul(m1, t4, y3b);
   f2_mul(m2, t3, t1m);
-  f2_sub(ox, m2, m1);
+  f2_sub(r.x, m2, m1);
   f2_mul(m1, y3b, t0_3);
   f2_mul(m2, t1m, z3);
-  f2_add(oy, m2, m1);
+  f2_add(r.y, m2, m1);
   f2_mul(m1, t0_3, t3);
   f2_mul(m2, z3, t4);
-  f2_add(oz, m2, m1);
-  if (q_inf) {
-    r = p;
-  } else {
-    r.x = ox;
-    r.y = oy;
-    r.z = oz;
-  }
+  f2_add(r.z, m2, m1);
+}
+
+// ------------------------------------- G2, one component a thread ------
+// Two neighbouring threads of a warp share a lane: thread c holds
+// component c of every Fq2 value. Adds and subtractions stay in the
+// thread; a product hands both operands' components to the partner
+// (__shfl_xor_sync, 16 words) and each thread computes its own component
+// by schoolbook, c = 0: a0b0 - a1b1, c = 1: a1b0 + a0b1 (two Fq products
+// a thread, where Karatsuba takes three a lane); b3 = 3 + 27i hands over
+// 27t. Every value is canonical, so the words are those of the plain
+// law, whatever the order of its products. Every thread of a warp runs
+// every shuffle.
+#define FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ void xchg8(u32 o[8], const u32 a[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) o[i] = __shfl_xor_sync(FULL_MASK, a[i], 1);
+}
+
+__device__ __forceinline__ void sel8(u32 r[8], bool c, const u32 a[8],
+                                     const u32 b[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = c ? a[i] : b[i];
+}
+
+// r = component c1 of a * b
+__device__ __forceinline__ void s_mul(u32 r[8], const u32 a[8], const u32 b[8],
+                                      bool c1) {
+  u32 ao[8], bo[8], u[8], v[8], t0[8], t1[8];
+  xchg8(ao, a);
+  xchg8(bo, b);
+  sel8(u, c1, bo, b);
+  sel8(v, c1, b, bo);
+  f_mul<FQ_ID>(t0, a, u);
+  f_mul<FQ_ID>(t1, ao, v);
+  f_sub<FQ_ID>(u, t0, t1);
+  f_add<FQ_ID>(v, t0, t1);
+  sel8(r, c1, v, u);
+}
+
+// component c1 of (3 + 27i) * t: (3t0 - 27t1, 27t0 + 3t1)
+__device__ __forceinline__ void s_mul_b3(u32 r[8], const u32 t[8], bool c1) {
+  u32 d[8], s3[8], s27[8], so[8];
+  f_dbl<FQ_ID>(d, t);
+  f_add<FQ_ID>(s3, d, t);
+  f_dbl<FQ_ID>(d, s3);
+  f_dbl<FQ_ID>(d, d);
+  f_dbl<FQ_ID>(d, d);
+  f_add<FQ_ID>(s27, d, s3);
+  xchg8(so, s27);
+  f_sub<FQ_ID>(d, s3, so);
+  f_add<FQ_ID>(s27, so, s3);
+  sel8(r, c1, s27, d);
+}
+
+struct Q2 {
+  u32 x[8], y[8], z[8];
+};
+
+// g2_add, one component a thread
+__device__ __forceinline__ void s_add(Q2& r, const Q2& p, const Q2& q,
+                                      bool c1) {
+  u32 t0[8], t1[8], t2[8], s[8], u[8], t3[8], t4[8], t5[8];
+  s_mul(t0, p.x, q.x, c1);
+  s_mul(t1, p.y, q.y, c1);
+  s_mul(t2, p.z, q.z, c1);
+  f_add<FQ_ID>(s, p.x, p.y);
+  f_add<FQ_ID>(u, q.x, q.y);
+  s_mul(t3, s, u, c1);
+  f_sub<FQ_ID>(t3, t3, t0);
+  f_sub<FQ_ID>(t3, t3, t1);
+  f_add<FQ_ID>(s, p.y, p.z);
+  f_add<FQ_ID>(u, q.y, q.z);
+  s_mul(t4, s, u, c1);
+  f_sub<FQ_ID>(t4, t4, t1);
+  f_sub<FQ_ID>(t4, t4, t2);
+  f_add<FQ_ID>(s, p.x, p.z);
+  f_add<FQ_ID>(u, q.x, q.z);
+  s_mul(t5, s, u, c1);
+  f_sub<FQ_ID>(t5, t5, t0);
+  f_sub<FQ_ID>(t5, t5, t2);
+  u32 t0_3[8], t2b[8], y3b[8], z3[8], t1m[8];
+  f_dbl<FQ_ID>(t0_3, t0);
+  f_add<FQ_ID>(t0_3, t0_3, t0);
+  s_mul_b3(t2b, t2, c1);
+  s_mul_b3(y3b, t5, c1);
+  f_add<FQ_ID>(z3, t1, t2b);
+  f_sub<FQ_ID>(t1m, t1, t2b);
+  u32 m1[8], m2[8];
+  s_mul(m1, t4, y3b, c1);
+  s_mul(m2, t3, t1m, c1);
+  f_sub<FQ_ID>(r.x, m2, m1);
+  s_mul(m1, y3b, t0_3, c1);
+  s_mul(m2, t1m, z3, c1);
+  f_add<FQ_ID>(r.y, m2, m1);
+  s_mul(m1, t0_3, t3, c1);
+  s_mul(m2, z3, t4, c1);
+  f_add<FQ_ID>(r.z, m2, m1);
+}
+
+// g2_add_mixed<true> (the iso-twist), one component a thread; r may alias p
+__device__ __forceinline__ void s_add_mixed(Q2& r, const Q2& p,
+                                            const u32 x2[8], const u32 y2[8],
+                                            bool c1) {
+  u32 t0[8], t1[8], s[8], u[8], t3[8], t4[8], y3l[8];
+  s_mul(t0, p.x, x2, c1);
+  s_mul(t1, p.y, y2, c1);
+  f_add<FQ_ID>(s, p.x, p.y);
+  f_add<FQ_ID>(u, x2, y2);
+  s_mul(t3, s, u, c1);
+  f_sub<FQ_ID>(t3, t3, t0);
+  f_sub<FQ_ID>(t3, t3, t1);
+  s_mul(t4, y2, p.z, c1);
+  f_add<FQ_ID>(t4, t4, p.y);
+  s_mul(y3l, x2, p.z, c1);
+  f_add<FQ_ID>(y3l, y3l, p.x);
+  u32 t0_3[8], t2b[8], y3b[8], z3[8], t1m[8];
+  f_dbl<FQ_ID>(t0_3, t0);
+  f_add<FQ_ID>(t0_3, t0_3, t0);
+  s_mul_b3(t2b, p.z, c1);
+  s_mul_b3(y3b, y3l, c1);
+  f_add<FQ_ID>(z3, t1, t2b);
+  f_sub<FQ_ID>(t1m, t1, t2b);
+  u32 m1[8], m2[8];
+  s_mul(m1, t4, y3b, c1);
+  s_mul(m2, t3, t1m, c1);
+  f_sub<FQ_ID>(r.x, m2, m1);
+  s_mul(m1, y3b, t0_3, c1);
+  s_mul(m2, t1m, z3, c1);
+  f_add<FQ_ID>(r.y, m2, m1);
+  s_mul(m1, t0_3, t3, c1);
+  s_mul(m2, z3, t4, c1);
+  f_add<FQ_ID>(r.z, m2, m1);
 }
 
 // ---------------------------------------------------- loads / stores ------
@@ -323,8 +395,63 @@ __device__ __forceinline__ void ld_coord(u32 r[8], const u32* q, int k) {
   }
 }
 
+// a lane's half of a G2 point: component c1 of x, y and z
+__device__ __forceinline__ void ld_q2(Q2& a, const u32* p, bool c1) {
+  ld8(a.x, p + (c1 ? 8 : 0));
+  ld8(a.y, p + (c1 ? 24 : 16));
+  ld8(a.z, p + (c1 ? 40 : 32));
+}
+__device__ __forceinline__ void st_q2(u32* p, const Q2& a, bool c1) {
+  st8(p + (c1 ? 8 : 0), a.x);
+  st8(p + (c1 ? 24 : 16), a.y);
+  st8(p + (c1 ? 40 : 32), a.z);
+}
+__device__ __forceinline__ void zero_q2(Q2& a) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) a.x[i] = a.y[i] = a.z[i] = 0;
+}
+
+// ------------------------------------------------- column prefetch ------
+// The scan copies column k+1 (a thread's words of the affine operand, and
+// the sign) into its own shared-memory slot with cp.async while it adds
+// column k; two slots a thread, 20 words each (16 of the operand, the
+// sign, padding), so that a warp's 16-byte reads of its slots fall on
+// distinct banks. A thread reads only what it copied itself: no barrier.
+constexpr int SLOT = 20;
+
+__device__ __forceinline__ void cp_async16(u32* smem, const u32* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(u32* smem, const void* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// 16 words at x and 16 words at y (8 and 8 from a G2 thread's component)
+// and the sign into slot
+__device__ __forceinline__ void fetch_col(u32* slot, const u32* x,
+                                          const u32* y, const int* sg) {
+  cp_async16(slot, x);
+  cp_async16(slot + 4, x + 4);
+  cp_async16(slot + 8, y);
+  cp_async16(slot + 12, y + 4);
+  cp_async4(slot + 16, sg);
+}
+
 // ------------------------------------------------------------ kernels ------
-__global__ void __launch_bounds__(128)
+constexpr int G1_THREADS = 128;  // one thread a lane, <= 128 registers
+constexpr int G2_THREADS = 64;   // two threads a lane, <= 168 registers
+
+__global__ void __launch_bounds__(G1_THREADS)
 k_add_g1(const u32* __restrict__ p, const u32* __restrict__ q,
          u32* __restrict__ out, long long n) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -336,65 +463,113 @@ k_add_g1(const u32* __restrict__ p, const u32* __restrict__ q,
   st_p1(out + i * 24, r);
 }
 
-__global__ void __launch_bounds__(128)
-k_add_g2(const u32* __restrict__ p, const u32* __restrict__ q,
-         u32* __restrict__ out, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  P2 a, b, r;
-  ld_p2(a, p + i * 48);
-  ld_p2(b, q + i * 48);
-  g2_add(r, a, b);
-  st_p2(out + i * 48, r);
-}
-
 // acc (n, 3, 8); cols (K, n, 2, 8) canonical affine; sign (K, n);
 // out (K, n, 3, 8): out[k] = acc + sum_{j<=k} (+-) cols[j]
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(G1_THREADS)
 k_scan_g1(const u32* __restrict__ acc, const u32* __restrict__ cols,
           const int* __restrict__ sign, u32* __restrict__ out, long long n,
           int K) {
+  extern __shared__ __align__(16) u32 stage[];   // 2 x blockDim x SLOT
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
+  u32* slot = stage + threadIdx.x * SLOT;   // and slot + blockDim.x * SLOT
   P1 a;
   ld_p1(a, acc + i * 24);
+  fetch_col(slot, cols + i * 16, cols + i * 16 + 8, sign + i);
+  cp_async_commit();
+#pragma unroll 1
   for (int k = 0; k < K; k++) {
     long long e = (long long)k * n + i;
-    u32 x2[8], y2[8], ny[8];
-    ld8(x2, cols + e * 16);
-    ld8(y2, cols + e * 16 + 8);
-    if (sign[e] != 0) {
-      f_neg<FQ_ID>(ny, y2);
-      cp8(y2, ny);
+    if (k + 1 < K) {
+      const u32* c = cols + (e + n) * 16;
+      fetch_col(slot + ((k + 1) & 1) * blockDim.x * SLOT, c, c + 8,
+                sign + e + n);
     }
-    g1_add_mixed_rx(a, a, x2, y2);
+    cp_async_commit();
+    cp_async_wait1();
+    const u32* cur = slot + (k & 1) * blockDim.x * SLOT;
+    u32 x2[8], y2[8];
+    ld8(x2, cur);
+    ld8(y2, cur + 8);
+    if (!(is_zero8(x2) && is_zero8(y2))) {     // (0,0) leaves a as it is
+      if (cur[16] != 0) f_neg<FQ_ID>(y2, y2);
+      g1_add_mixed_rx(a, a, x2, y2);
+    }
     st_p1(out + e * 24, a);
   }
 }
 
+// G2, two threads a lane (c1 = thread & 1 holds component c1). Lanes past
+// n run the arithmetic on zeros, since their partners and warps need
+// them in every shuffle, and store nothing.
+__global__ void __launch_bounds__(G2_THREADS, 6)
+k_add_g2(const u32* __restrict__ p, const u32* __restrict__ q,
+         u32* __restrict__ out, long long n) {
+  long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long i = t >> 1;
+  bool c1 = t & 1, live = i < n;
+  Q2 a, b, r;
+  if (live) {
+    ld_q2(a, p + i * 48, c1);
+    ld_q2(b, q + i * 48, c1);
+  } else {
+    zero_q2(a);
+    zero_q2(b);
+  }
+  s_add(r, a, b, c1);
+  if (live) st_q2(out + i * 48, r, c1);
+}
+
 // acc (n, 6, 8); cols (K, n, 4, 8); sign (K, n); out (K, n, 6, 8)
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(G2_THREADS, 6)
 k_scan_g2(const u32* __restrict__ acc, const u32* __restrict__ cols,
           const int* __restrict__ sign, u32* __restrict__ out, long long n,
           int K) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  P2 a;
-  ld_p2(a, acc + i * 48);
+  extern __shared__ __align__(16) u32 stage[];   // 2 x blockDim x SLOT
+  long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long i = t >> 1;
+  bool c1 = t & 1, live = i < n;
+  int off = c1 ? 8 : 0;
+  u32* slot = stage + threadIdx.x * SLOT;   // and slot + blockDim.x * SLOT
+  Q2 a;
+  if (live) {
+    ld_q2(a, acc + i * 48, c1);
+    fetch_col(slot, cols + i * 32 + off, cols + i * 32 + 16 + off, sign + i);
+  } else {
+    zero_q2(a);
+  }
+  cp_async_commit();
+#pragma unroll 1
   for (int k = 0; k < K; k++) {
     long long e = (long long)k * n + i;
-    Fe2 x2, y2;
-    ld_f2(x2, cols + e * 32);
-    ld_f2(y2, cols + e * 32 + 16);
-    if (sign[e] != 0) {
-      Fe2 ny;
-      f2_neg(ny, y2);
-      y2 = ny;
+    if (live && k + 1 < K) {
+      const u32* c = cols + (e + n) * 32 + off;
+      fetch_col(slot + ((k + 1) & 1) * blockDim.x * SLOT, c, c + 16,
+                sign + e + n);
     }
-    P2 r;
-    g2_add_mixed<true>(r, a, x2, y2);
-    a = r;
-    st_p2(out + e * 48, a);
+    cp_async_commit();
+    cp_async_wait1();
+    const u32* cur = slot + (k & 1) * blockDim.x * SLOT;
+    u32 x2[8], y2[8];
+    int sg = 0;
+    if (live) {
+      ld8(x2, cur);
+      ld8(y2, cur + 8);
+      sg = (int)cur[16];
+    } else {
+#pragma unroll
+      for (int w = 0; w < 8; w++) x2[w] = y2[w] = 0;
+    }
+    int z = is_zero8(x2) && is_zero8(y2);
+    bool inf = z & __shfl_xor_sync(FULL_MASK, z, 1);
+    if (__any_sync(FULL_MASK, !inf)) {
+      if (sg != 0) f_neg<FQ_ID>(y2, y2);
+      s_add_mixed(a, a, x2, y2, c1);
+      // (0,0) leaves the accumulator as it is: such a lane reads back
+      // what it stored last rather than keeping a copy in registers
+      if (inf && live) ld_q2(a, k ? out + (e - n) * 48 : acc + i * 48, c1);
+    }
+    if (live) st_q2(out + e * 48, a, c1);
   }
 }
 
@@ -431,7 +606,10 @@ k_add_mixed_g2(const u32* __restrict__ p, const u32* __restrict__ q,
   ld_coord<UNPACKED>(x2.c1, qi, 1);
   ld_coord<UNPACKED>(y2.c0, qi, 2);
   ld_coord<UNPACKED>(y2.c1, qi, 3);
-  g2_add_mixed<false>(r, a, x2, y2);
+  if (f2_is_zero(x2) && f2_is_zero(y2))
+    r = a;
+  else
+    g2_add_mixed(r, a, x2, y2);
   st_p2(out + i * 48, r);
 }
 
@@ -454,19 +632,35 @@ static int launch_add_mixed(int curve, const void* p, const void* q,
   return (int)cudaGetLastError();
 }
 
+// launch geometry of `add` (op 0) and `scan_cols_packed` (op 1) for n
+// lanes: one thread a G1 lane, two a G2 lane
+struct Geom {
+  const void* fn;
+  int threads;        // per block
+  long long blocks;
+  int smem;           // dynamic shared memory a block, bytes
+};
+
+static Geom pick(int op, int curve, long long n) {
+  int T = curve == 0 ? G1_THREADS : G2_THREADS;
+  const void* fn = curve == 0 ? (op == 0 ? (const void*)k_add_g1
+                                         : (const void*)k_scan_g1)
+                              : (op == 0 ? (const void*)k_add_g2
+                                         : (const void*)k_scan_g2);
+  return {fn, T, (long long)nblocks(curve == 0 ? n : 2 * n, T),
+          op == 0 ? 0 : 2 * T * SLOT * 4};
+}
+
 extern "C" {
 
 // curve: 0 = G1 (relaxed law), 1 = G2 iso-twist
 int rs_add(int curve, const void* p, const void* q, void* out, long long n,
            void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (curve == 0)
-    k_add_g1<<<nblocks(n, 128), 128, 0, s>>>((const u32*)p, (const u32*)q,
-                                             (u32*)out, n);
-  else
-    k_add_g2<<<nblocks(n, 128), 128, 0, s>>>((const u32*)p, (const u32*)q,
-                                             (u32*)out, n);
+  Geom g = pick(0, curve, n);
+  void* args[] = {&p, &q, &out, &n};
+  cudaLaunchKernel(g.fn, dim3((unsigned)g.blocks), dim3(g.threads), args,
+                   g.smem, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -474,13 +668,10 @@ int rs_scan_cols(int curve, const void* acc, const void* cols,
                  const void* sign, void* out, long long n, int K,
                  void* stream) {
   if (n <= 0 || K <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (curve == 0)
-    k_scan_g1<<<nblocks(n, 128), 128, 0, s>>>(
-        (const u32*)acc, (const u32*)cols, (const int*)sign, (u32*)out, n, K);
-  else
-    k_scan_g2<<<nblocks(n, 128), 128, 0, s>>>(
-        (const u32*)acc, (const u32*)cols, (const int*)sign, (u32*)out, n, K);
+  Geom g = pick(1, curve, n);
+  void* args[] = {&acc, &cols, &sign, &out, &n, &K};
+  cudaLaunchKernel(g.fn, dim3((unsigned)g.blocks), dim3(g.threads), args,
+                   g.smem, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -492,6 +683,19 @@ int rs_add_mixed_packed(int curve, const void* p, const void* q, void* out,
 int rs_add_mixed(int curve, const void* p, const void* q, void* out,
                  long long n, void* stream) {
   return launch_add_mixed<true>(curve, p, q, out, n, stream);
+}
+
+// The geometry `rs_add` (op 0) or `rs_scan_cols` (op 1) launches for n
+// lanes: out = {threads per block, blocks, resident blocks per SM}.
+int rs_curve_geometry(int op, int curve, long long n, int* out) {
+  Geom g = pick(op, curve, n);
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, g.fn, g.threads, g.smem);
+  out[0] = g.threads;
+  out[1] = (int)g.blocks;
+  out[2] = per_sm;
+  return (int)e;
 }
 
 }  // extern "C"

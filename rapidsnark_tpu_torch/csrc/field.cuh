@@ -14,7 +14,6 @@
 #include <cuda_runtime.h>
 
 typedef uint32_t u32;
-typedef uint64_t u64;
 
 #define FQ_ID 0
 #define FR_ID 1
@@ -58,27 +57,44 @@ __device__ __forceinline__ void cp8(u32 r[8], const u32 a[8]) {
   for (int i = 0; i < 8; i++) r[i] = a[i];
 }
 
+// r = a + b mod 2^256; returns the carry out of the top limb
 __device__ __forceinline__ u32 add8(u32 r[8], const u32 a[8], const u32 b[8]) {
-  u64 c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    c += (u64)a[i] + b[i];
-    r[i] = (u32)c;
-    c >>= 32;
-  }
-  return (u32)c;
+  u32 c;
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return c;
 }
 
 // r = a - b mod 2^256; returns the borrow (1 when a < b)
 __device__ __forceinline__ u32 sub8(u32 r[8], const u32 a[8], const u32 b[8]) {
-  u32 br = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    u64 t = (u64)a[i] - b[i] - br;
-    r[i] = (u32)t;
-    br = (u32)(t >> 63);
-  }
-  return br;
+  u32 br;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(br)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return br & 1;
 }
 
 // s = s - k if s >= k else s
@@ -96,39 +112,129 @@ __device__ __forceinline__ bool is_zero8(const u32 a[8]) {
   return o == 0;
 }
 
-// CIOS Montgomery product, no final subtraction: r = (a*b + m*p) / R
-// mod 2^256. r may alias a or b.
+// ---- the Montgomery product -------------------------------------------
+// CIOS, word by word (b[0] .. b[7]), written as carry chains of
+// mad.lo.cc / madc.hi.cc. The running sum t*2^32 of one round is kept in
+// two frames so that the a*b[i] and m*p rows split into two independent
+// chains each: an even frame (words 0..7 of t) takes the products
+// a[2k]*b[i] and p[2k]*m, an odd frame (words 1..8) a[2k+1]*b[i] and
+// p[2k+1]*m, each product's low and high halves landing on two adjacent
+// words of its frame. After a round the even frame's word 0 is zero;
+// the next round reads the odd frame as its even frame and the even
+// frame, two words down, as its odd frame, so the frames swap roles.
+// A carry out of the even frame lands on the odd frame's top word; none
+// leaves the odd frame: t < (a + p) * 2^32 < 2^288 for a <= 2p, since
+// p < 2^254. The REDC output T = (a*b + m*p) / R is unique, so the words
+// are those of the plain version; T < a*b/R + p < 2p for a, b <= 2p.
+
+// x[0..7] = lo, hi of a[2k+O] * b at words 2k, 2k+1 (k = 0..3)
+template <int O>
+__device__ __forceinline__ void mul_row(u32 x[8], const u32 a[8], u32 b) {
+#pragma unroll
+  for (int k = 0; k < 4; k++)
+    asm("mul.lo.u32 %0, %2, %3;\n\tmul.hi.u32 %1, %2, %3;"
+        : "=r"(x[2 * k]), "=r"(x[2 * k + 1])
+        : "r"(a[2 * k + O]), "r"(b));
+}
+
+// y[0..7] += w[2k+O] * b at words 2k, 2k+1; the carry out onto *top
+template <int O>
+__device__ __forceinline__ void mad_row(u32 y[8], u32* top, const u32 w[8],
+                                        u32 b) {
+  asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(y[0]), "+r"(y[1]), "+r"(y[2]), "+r"(y[3]), "+r"(y[4]),
+        "+r"(y[5]), "+r"(y[6]), "+r"(y[7]), "+r"(*top)
+      : "r"(w[O]), "r"(w[2 + O]), "r"(w[4 + O]), "r"(w[6 + O]), "r"(b));
+}
+
+// x[0..7] += w[2k+1] * b at words 2k, 2k+1, no carry out (the odd frame)
+__device__ __forceinline__ void mad_row_odd(u32 x[8], const u32 w[8], u32 b) {
+  asm("mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+      "madc.hi.u32 %7, %11, %12, %7;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+        "+r"(x[5]), "+r"(x[6]), "+r"(x[7])
+      : "r"(w[1]), "r"(w[3]), "r"(w[5]), "r"(w[7]), "r"(b));
+}
+
+// The frame swap of a round: y[0] += x[1], then x becomes the odd frame
+// x[2..7] + a[2k+1] * b (words 1..8 of the new t). The top word cannot
+// carry: hi(a*b) <= 2^32 - 2.
+__device__ __forceinline__ void shift_row_odd(u32 x[8], u32 y[8],
+                                              const u32 a[8], u32 b) {
+  asm("add.cc.u32 %8, %8, %1;\n\t"
+      "madc.lo.cc.u32 %0, %9, %13, %2;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %3;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %4;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %5;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %6;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %7;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, 0;\n\t"
+      "madc.hi.u32 %7, %12, %13, 0;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+        "+r"(x[5]), "+r"(x[6]), "+r"(x[7]), "+r"(y[0])
+      : "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]), "r"(b));
+}
+
+// the reduction of a round: m = y[0] * -p^-1; x += p_odd * m, y += p_even
+// * m (y[0] becomes 0), y's carry onto x[7]
+template <int F>
+__device__ __forceinline__ void redc_row(u32 y[8], u32 x[8], const u32 p[8]) {
+  u32 m = y[0] * n0inv<F>();
+  mad_row_odd(x, p, m);
+  mad_row<0>(y, &x[7], p, m);
+}
+
+// one round after the first: x is the frame whose word 0 is zero, y the
+// odd frame; on return y is the zero frame and x the odd one
+template <int F>
+__device__ __forceinline__ void mont_round(u32 x[8], u32 y[8], const u32 a[8],
+                                           u32 b, const u32 p[8]) {
+  shift_row_odd(x, y, a, b);
+  mad_row<0>(y, &x[7], a, b);
+  redc_row<F>(y, x, p);
+}
+
+// r = (a*b + m*p) / R, no final subtraction; r may alias a or b
 template <int F>
 __device__ __forceinline__ void mont(u32 r[8], const u32 a[8], const u32 b[8]) {
-  u32 t[10];
+  u32 p[8], e[8], o[8];
+  cp8(p, K_P[F]);
+  mul_row<0>(e, a, b[0]);
+  mul_row<1>(o, a, b[0]);
+  redc_row<F>(e, o, p);
 #pragma unroll
-  for (int i = 0; i < 10; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      c += (u64)a[j] * b[i] + t[j];
-      t[j] = (u32)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[8] = (u32)c;
-    t[9] = (u32)(c >> 32);
-    u32 m = t[0] * n0inv<F>();
-    c = ((u64)m * K_P[F][0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      c += (u64)m * K_P[F][j] + t[j];
-      t[j - 1] = (u32)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[7] = (u32)c;
-    t[8] = t[9] + (u32)(c >> 32);
+  for (int i = 1; i < 8; i += 2) {
+    mont_round<F>(e, o, a, b[i], p);
+    if (i + 1 < 8) mont_round<F>(o, e, a, b[i + 1], p);
   }
-#pragma unroll
-  for (int i = 0; i < 8; i++) r[i] = t[i];
+  // o is the zero frame, e the odd one: r = e + (o >> 32)
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7])
+      : "r"(e[0]), "r"(e[1]), "r"(e[2]), "r"(e[3]), "r"(e[4]), "r"(e[5]),
+        "r"(e[6]), "r"(e[7]), "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]),
+        "r"(o[5]), "r"(o[6]), "r"(o[7]));
 }
 
 // ---- canonical ops (values < p) -------------------------------------------
@@ -225,11 +331,11 @@ __device__ __forceinline__ void f2_dbl(Fe2& r, const Fe2& a) {
   f_add<FQ_ID>(r.c1, a.c1, a.c1);
 }
 
-// Karatsuba: re = a0b0 - a1b1, im = (a0+a1)(b0+b1) - a0b0 - a1b1.
-// An out-of-line call: with every Fq2 product inlined into the G2
-// adders, nvcc 12.9's front end crashes (seen with CUDA 12.9 on the
-// H100 machine); one call per Fq2 product keeps the kernels compact.
-__device__ __noinline__ void f2_mul(Fe2& r, const Fe2& a, const Fe2& b) {
+// Karatsuba: re = a0b0 - a1b1, im = (a0+a1)(b0+b1) - a0b0 - a1b1, for
+// the strict mixed adds of G2's own twist (the MSM's G2 adders spread an
+// Fq2 product over two threads, curve.cu). Inlined, so that its operands
+// stay in registers.
+__device__ __forceinline__ void f2_mul(Fe2& r, const Fe2& a, const Fe2& b) {
   u32 m0[8], m1[8], sa[8], sb[8], t[8];
   f_mul<FQ_ID>(m0, a.c0, b.c0);
   f_mul<FQ_ID>(m1, a.c1, b.c1);

@@ -8,8 +8,9 @@ without it:
 
 Inputs are random canonical field elements from numpy seeds, with
 (0,0) infinity columns and random signs for the scan. Tolerance: exact
-words (the kernels run the plain versions' op sequences; REDC outputs
-are unique whatever the limb width)."""
+words (REDC outputs are unique whatever the limb width; the G1 kernels
+run the plain relaxed law's op sequence, and every value of the G2 law
+is canonical, whatever the order of its products)."""
 
 import numpy as np
 import pytest
@@ -37,13 +38,35 @@ def _fe(mod, shape, seed, dev):
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
+# lane counts that divide no block or thread split of the adders
+RAGGED = [1, 31, 33, 1000, 4097]
+
+
+def _one_words(dev):
+    """1 in Montgomery form as 8 packed words."""
+    return torch.tensor(np.array(
+        [(((1 << 256) % P) >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+        dtype=np.uint32).view(np.int32), device=dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve", sorted(CURVES))
-@pytest.mark.parametrize("n", [1, 1000])
+@pytest.mark.parametrize("n", RAGGED)
 def test_add_kernel_matches_plain(curve, n):
+    """Random points, and lanes where q = p, q = -p, p at infinity and q
+    at infinity ((0, 1, 0))."""
     dev = _dev()
     c, L = CURVES[curve]
+    f = L // 3                              # words of one coordinate / 8
     p, q = _fe(P, (n, L), 1, dev), _fe(P, (n, L), 2, dev)
+    q[2::5] = p[2::5]                                  # q = p
+    neg = slice(3, None, 5)
+    q[neg] = p[neg]
+    from rapidsnark_tpu_torch.ops import field as FF
+    q[neg, f:2 * f] = FF.pack(FF.FQ.neg(FF.unpack(p[neg, f:2 * f])))
+    for t, lanes in ((p, slice(4, None, 7)), (q, slice(5, None, 7))):
+        t[lanes] = 0
+        t[lanes, f] = _one_words(dev)                  # (0, 1, 0)
     got = TFU.add(c, p, q)
     want = TFU.add_plain(c, p, q)
     torch.cuda.synchronize()
@@ -52,14 +75,18 @@ def test_add_kernel_matches_plain(curve, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve", sorted(CURVES))
-@pytest.mark.parametrize("K", [1, 2, 256])
-def test_scan_kernel_matches_plain(curve, K):
+@pytest.mark.parametrize("K", [1, 2, 3, 256])
+@pytest.mark.parametrize("n", RAGGED)
+def test_scan_kernel_matches_plain(curve, K, n):
+    """(0,0) entries in some lanes, a whole (0,0) column, signs set."""
     dev = _dev()
     c, L = CURVES[curve]
-    n, A = 300, L - L // 3
+    A = L - L // 3
     acc = _fe(P, (n, L), 3, dev)
     cols = _fe(P, (K, n, A), 4, dev)
     cols[:, ::7] = 0                                   # infinity lanes
+    if K > 2:
+        cols[K // 2] = 0                               # an empty column
     rs = np.random.RandomState(K)
     sign = torch.from_numpy(rs.randint(0, 2, size=(K, n))
                             .astype(np.int32)).to(dev)
@@ -108,11 +135,8 @@ def test_add_mixed_kernels_match_plain(curve, form, n):
     A = L - L // 3
     p, q = _fe(P, (n, L), 12, dev), _fe(P, (n, A), 13, dev)
     q[::7] = 0                                         # infinity lanes
-    one = torch.tensor(np.array(
-        [(((1 << 256) % P) >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
-        dtype=np.uint32).view(np.int32), device=dev)
     p[2::5, A:] = 0
-    p[2::5, A] = one                                   # z = 1
+    p[2::5, A] = _one_words(dev)                       # z = 1
     p[2::5, :A] = q[2::5]                              # q = p (doubling)
     if form == "limbs":
         qq = q.to(torch.int64) & 0xFFFFFFFF
