@@ -17,10 +17,11 @@ failure exits non-zero:
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed with CUDA events beside the plain version and the
      least time the card could take (bound), at every shape the paths
-     below give it: the whole-axis 2^20 prove's, the segmented 2^22
-     prove's (a slice's scan, every width `add` is launched at with its
-     launches per 2^20 prove and per slice, every fused pass over 3 x
-     2^22), and for dma_gather the tool's default rows and the 2^20
+     below give it: the whole-axis 2^20 prove's, the segmented 2^22 and
+     2^24 proves' (a slice's scan, every width `add` is launched at with
+     its launches per 2^20 prove and per slice, every fused pass over 3 x
+     2^22 and over 1 x 2^24), and for dma_gather the tool's default rows
+     and the 2^20
      prove's G1 and G2 rows, with a permutation and with repeated rows,
      beside torch.index_select (library_ms). `add` is timed alone (its C
      entry point back to back: a narrow launch takes less time than the
@@ -62,7 +63,14 @@ failure exits non-zero:
      the loaded Prover (warm); the proof must pairing-verify,
      scan_cols_packed must have launched once per slice per window group
      per MSM call, and add at the widths phase 2 timed;
-  9. a `kernels` JSON line, the card line, and the result line last.
+  9. generate bench_fixtures/sqchain16777216.{zkey,wtns} on the card (the
+     smaller fixtures are deleted first; the machine's memory and disk
+     and this process's resident memory are printed), prove it through
+     the CLI entry point (cold), then on the loaded Prover (warm, with
+     the device peak of the front and of each MSM stage); both proofs
+     must pairing-verify, and every scan, add and fused NTT pass must
+     have run at a shape phase 2 checked; a `prove_2^24` JSON line;
+ 10. a `kernels` JSON line, the card line, and the result line last.
 
 Bounds: bytes over 3.35 TB/s (each input read once, each output written
 once) against 32-bit multiply-adds over the SMs' IMAD rate, 132 SMs x 64
@@ -95,6 +103,7 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 MONT_IMADS = 264
 LOGN_BIG = 20
 LOGN_SEG = 22       # the segmented prove
+LOGN_MAX = 24       # the production size, segmented, sequential NTTs
 GEN_LANES = 1 << 18  # scalars per fixed-base ladder chunk (fixtures._CH)
 
 
@@ -186,6 +195,49 @@ def add_widths(rows, nb, M):
             w[rows * size] += 1
     hillis(rows, size)
     return w
+
+
+def rss_now() -> int:
+    """This process's resident bytes (/proc/self/status VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """The largest resident set of this process while the block runs,
+    sampled every 50 ms on a thread (.peak, bytes)."""
+
+    def __enter__(self):
+        self.peak = rss_now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, rss_now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_now())
+
+
+def machine(path):
+    """The machine's memory (/proc/meminfo, bytes) and the disk that holds
+    `path` (bytes)."""
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key = line.split(":")[0]
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = int(line.split()[1]) * 1024
+    du = shutil.disk_usage(path)
+    return {**mem, "disk_total": du.total, "disk_free": du.free}
 
 
 def main() -> int:
@@ -326,33 +378,44 @@ def main() -> int:
     nb = (2 << LOGN_BIG) // 256
     lanes = {G1P: G * 4 * nb, G2P_ISO: G * 1 * nb}
     add_lanes = {G1P: G * 4 * (M + 1), G2P_ISO: G * 1 * (M + 1)}
-    # the segmented 2^22 prove (phase 8 fails unless it ran with these):
-    # a slice's scan has segment / 256 lanes per window per table row, and
-    # the cross-slice accumulate adds one point per window per row
-    seg = config.msm_segment(1 << LOGN_SEG)
-    seg_c = MSM.best_window_bits(1 << LOGN_SEG, seg)
-    seg_nwin = -(-GLV_BITS // seg_c)
-    seg_G = max(g for g in range(1, config.window_group() + 1)
-                if seg_nwin % g == 0)
-    if not seg or (1 << LOGN_SEG) % seg:
-        raise RuntimeError(f"2^{LOGN_SEG} points do not segment ({seg})")
-    seg_lanes = {G1P: seg_G * 4 * (seg // 256), G2P_ISO: seg_G * (seg // 256)}
+    def segmented(logn):
+        """The segmented prove's MSM geometry at 2^logn points (phases 8
+        and 9 fail unless the proves ran with it): segment, c, window
+        group G, window groups; a slice's scan has segment / 256 lanes
+        per window per table row; add's widths per slice (_window_group
+        on both curves once per window group, then one point per window
+        into the running totals)."""
+        s = config.msm_segment(1 << logn)
+        if not s or (1 << logn) % s:
+            raise RuntimeError(f"2^{logn} points do not segment ({s})")
+        cc = MSM.best_window_bits(1 << logn, s)
+        nw = -(-GLV_BITS // cc)
+        gg = max(g for g in range(1, config.window_group() + 1)
+                 if nw % g == 0)
+        adds = {}
+        for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
+            sl = Counter()
+            for _ in range(nw // gg):
+                sl.update(add_widths(gg * rows, s // 256, 1 << (cc - 1)))
+                sl[gg * rows] += 1
+            adds[curve] = sl
+        return {"segment": s, "c": cc, "G": gg, "groups": nw // gg,
+                "lanes": {G1P: gg * 4 * (s // 256), G2P_ISO: gg * (s // 256)},
+                "adds": adds}
+
+    geo = {LOGN_SEG: segmented(LOGN_SEG), LOGN_MAX: segmented(LOGN_MAX)}
+    seg_lanes = geo[LOGN_SEG]["lanes"]
     # add's widths and launches: a 2^20 prove runs _window_group on both
-    # curves once per window group; a 2^22 slice does the same with its
-    # own chunks and adds one point per window into the running totals
+    # curves once per window group; a slice of a segmented prove as above
     groups_big = -(-GLV_BITS // c) // G
-    seg_groups = seg_nwin // seg_G
     add_launches = {}
     for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
-        big, sl = Counter(), Counter()
+        big = Counter()
         for _ in range(groups_big):
             big.update(add_widths(G * rows, nb, M))
-        for _ in range(seg_groups):
-            sl.update(add_widths(seg_G * rows, seg // 256,
-                                 1 << (seg_c - 1)))
-            sl[seg_G * rows] += 1
-        add_launches[curve] = {"2^20 prove": big, "2^22 slice": sl}
-    seg_add_lanes = {G1P: seg_G * 4, G2P_ISO: seg_G}
+        add_launches[curve] = {
+            "2^20 prove": big,
+            **{f"2^{lg} slice": g["adds"][curve] for lg, g in geo.items()}}
     coords = {G1P: 3, G2P_ISO: 6, G2P: 6}
     mont_add = {G1P: 17, G2P_ISO: 36}
     mont_mixed = {G1P: 14, G2P_ISO: 33}
@@ -379,11 +442,11 @@ def main() -> int:
     for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
         L = coords[curve]
         # add: a small random batch, then every width a 2^20 prove and a
-        # 2^22 slice launch it at (the main shape first), each with its
-        # launches there
+        # 2^22 or 2^24 slice launch it at (the main shape first), each with
+        # its launches there
         runs_n = add_launches[curve]
-        shapes = sorted(set(runs_n["2^20 prove"]) | set(runs_n["2^22 slice"])
-                        | {add_lanes[curve]}, reverse=True)
+        shapes = sorted(set().union(*runs_n.values()) | {add_lanes[curve]},
+                        reverse=True)
         shapes.remove(add_lanes[curve])
         per_run = {r: [0, 0.0, 0.0, 0.0] for r in runs_n}
         for n in [1000, add_lanes[curve]] + shapes:
@@ -421,7 +484,8 @@ def main() -> int:
         # scan_cols_packed: K in {1, 2, 256}, signs set, some infinities
         A = L - L // 3
         for K, n in ((1, 1000), (2, 1000), (256, 1000),
-                     (256, lanes[curve]), (256, seg_lanes[curve])):
+                     (256, lanes[curve]), (256, seg_lanes[curve]),
+                     (256, geo[LOGN_MAX]["lanes"][curve])):
             acc = fe(P, (n, L))
             cols = fe(P, (K, n, A))
             cols[:, ::7] = 0                       # (0,0) = infinity
@@ -495,13 +559,17 @@ def main() -> int:
 
     # NTT kernels: Fr elements. The fused passes of the 2^20 prove, then
     # every pass of the 2^22 prove's two transforms (DIF top-down, DIT
-    # bottom-up with the coset pre-multiply on its first pass)
-    def pass_cases(logn, cases):
+    # bottom-up with the coset pre-multiply on its first pass) over the
+    # 3-stack, and of the 2^24 prove's over one polynomial (sequential)
+    ntt_checked = set()      # (batch, n, lo, k, dif, pre_mul) held here
+
+    def pass_cases(logn, cases, batch=3):
         n = 1 << logn
-        x, tw, pm = fe(R_FR, (3, n)), fe(R_FR, (n // 2,)), fe(R_FR, (n,))
+        x, tw, pm = fe(R_FR, (batch, n)), fe(R_FR, (n // 2,)), fe(R_FR, (n,))
         for lo, k, dif, pre in cases:
             pmul = pm if pre else None
-            key = f"3 x 2^{logn} bits {lo}+{k} " \
+            ntt_checked.add((batch, n, lo, k, dif, pre))
+            key = f"{batch} x 2^{logn} bits {lo}+{k} " \
                 f"{'dif' if dif else 'dit'}" + (" pre_mul" if pre else "")
             want, plain_ms = timed_once(lambda: fused.ntt_fused_pass_plain(
                 x, tw, lo, k, dif, pmul))
@@ -511,19 +579,20 @@ def main() -> int:
             del want, got
             ms = timed(lambda: fused.ntt_fused_pass(x, tw, lo, k, dif,
                                                     pmul), 10)
-            elems = 3 * n
+            elems = batch * n
             nbytes = 2 * elems * 32 + (1 << (lo + k - 1)) * 32 + \
                 (n * 32 if pre else 0)
             imads = (elems // 2 * k + (elems if pre else 0)) * MONT_IMADS
             record("ntt_fused_pass", key, e, ms, plain_ms, nbytes, imads)
         return x, tw
 
-    seg_passes = _passes(LOGN_SEG)
-    x, tw = pass_cases(LOGN_SEG,
-                       [(lo, k, True, False) for lo, k in seg_passes] +
-                       [(lo, k, False, lo == 0) for lo, k in seg_passes])
-    del x, tw
-    torch.cuda.empty_cache()
+    for logn, batch in ((LOGN_SEG, 3), (LOGN_MAX, 1)):
+        x, tw = pass_cases(logn,
+                           [(lo, k, True, False) for lo, k in _passes(logn)] +
+                           [(lo, k, False, lo == 0) for lo, k in _passes(logn)],
+                           batch)
+        del x, tw
+        torch.cuda.empty_cache()
     N = 1 << LOGN_BIG
     x, tw = pass_cases(LOGN_BIG, ((0, 10, False, True), (0, 10, True, False),
                                   (10, 5, False, False), (15, 5, True, False)))
@@ -627,9 +696,12 @@ def main() -> int:
         if not ok:
             raise RuntimeError(f"proof of {tag} does not verify")
 
+    walls = {}               # CLI wall seconds by tag
+
     def prove_and_verify(zpath, wpath, tag):
         """A cold prove through the CLI entry point, pairing-verified.
-        Returns (phases, peak bytes, the loaded Prover)."""
+        Returns (phases, peak bytes, the loaded Prover); the wall goes
+        into walls[tag]."""
         proof_p = os.path.join(outd, f"{tag}_proof.json")
         pub_p = os.path.join(outd, f"{tag}_public.json")
         holder = []
@@ -638,7 +710,7 @@ def main() -> int:
         cli.run_prove(zpath, wpath, proof_p, pub_p, device="cuda",
                       prover_out=holder)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = walls[tag] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         prover = holder[0]
         phases = dict(prover.last_phases)
@@ -648,17 +720,21 @@ def main() -> int:
             f"verified True")
         return phases, peak, prover
 
-    def warm_prove(prover, zpath, wpath, tag):
-        """One more prove on a loaded Prover, pairing-verified."""
+    def warm_prove(prover, zpath, wpath, tag, peaks=None):
+        """One more prove on a loaded Prover, pairing-verified; `peaks`
+        (a dict) receives the device peak of each stage, and then the
+        returned peak is their largest."""
         wt = read_wtns(wpath)
         torch.cuda.reset_peak_memory_stats()
-        proof, pub = prover.prove(wt.values)
+        proof, pub = prover.prove(wt.values, peaks=peaks)
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        peak = (torch.cuda.max_memory_allocated() if peaks is None
+                else max(peaks.values()))
         phases = dict(prover.last_phases)
         check_proof(zpath, proof, pub, tag)
         log(f"  prove {tag}: phases {json.dumps(phases)} peak_mem {peak} B "
-            f"verified True")
+            + ("" if peaks is None else f"stage peaks {json.dumps(peaks)} ")
+            + "verified True")
         return phases, peak
 
     def front_rows(prover, wpath):
@@ -790,22 +866,38 @@ def main() -> int:
             "stacked_front_s": front_s2}
         return out
 
-    # add's launches by (G1?, lanes) while a prove runs: the widths that
-    # phase 2 timed must be the widths the prove launches
-    seen_adds = Counter()
-    real_add = fused.add
+    # the shapes the kernels run at while a prove runs: add's launches by
+    # (G1?, lanes), the scan's by (G1?, K, lanes), the fused NTT pass's by
+    # (batch, n, lo, k, dif, pre_mul); phase 2 must have timed them
+    seen_adds, seen_scans, seen_passes = Counter(), Counter(), Counter()
+    real = {"add": fused.add, "scan_cols_packed": fused.scan_cols_packed,
+            "ntt_fused_pass": fused.ntt_fused_pass}
 
     def logged_add(curve, p, q):
         seen_adds[(curve is G1P, p.numel() // (coords[curve] * 8))] += 1
-        return real_add(curve, p, q)
+        return real["add"](curve, p, q)
+
+    def logged_scan(curve, acc, cols, sign):
+        seen_scans[(curve is G1P, cols.shape[0],
+                    acc.numel() // (coords[curve] * 8))] += 1
+        return real["scan_cols_packed"](curve, acc, cols, sign)
+
+    def logged_pass(x, tw, lo_bit, nbits, dif, pre_mul=None):
+        seen_passes[(x.shape[0], x.shape[1], lo_bit, nbits, bool(dif),
+                     pre_mul is not None)] += 1
+        return real["ntt_fused_pass"](x, tw, lo_bit, nbits, dif, pre_mul)
 
     def logged_prove(*args):
-        seen_adds.clear()
-        fused.add = logged_add
+        for c_ in (seen_adds, seen_scans, seen_passes):
+            c_.clear()
+        fused.add, fused.scan_cols_packed, fused.ntt_fused_pass = (
+            logged_add, logged_scan, logged_pass)
         try:
             return prove_and_verify(*args)
         finally:
-            fused.add = real_add
+            fused.add, fused.scan_cols_packed, fused.ntt_fused_pass = (
+                real["add"], real["scan_cols_packed"],
+                real["ntt_fused_pass"])
 
     def check_widths(run, times):
         for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
@@ -819,6 +911,43 @@ def main() -> int:
                                    f"{dict(want)}")
         log(f"  add widths and launches as phase 2 timed them ({run} x "
             f"{times})")
+
+    def check_segmented(prover, logn, counts):
+        """A segmented prove ran phase 2's geometry for 2^logn points and
+        every scan, add and fused NTT pass at a shape phase 2 held.
+        Returns (slices, window groups)."""
+        g = geo[logn]
+        nwin = -(-GLV_BITS // prover.c_bits)
+        groups = nwin // max(k for k in range(1, prover.window_group + 1)
+                             if nwin % k == 0)
+        slices = 2 * prover.nmax // prover.segment if prover.segment else 1
+        log(f"  segment {prover.segment} c_bits {prover.c_bits} slices "
+            f"{slices} window groups {groups} ntt_sequential "
+            f"{prover.ntt_seq} launches {json.dumps(counts)}")
+        ran = (prover.nmax, prover.segment, prover.c_bits, nwin // groups,
+               prover.ntt_seq)
+        if ran != (1 << logn, g["segment"], g["c"], g["G"],
+                   config.ntt_sequential(logn)):
+            raise RuntimeError(
+                f"the 2^{logn} prove ran (nmax, segment, c, group, "
+                f"sequential NTT) {ran}; phase 2 checked the kernels for "
+                f"{(1 << logn, g['segment'], g['c'], g['G'])}")
+        check_widths(f"2^{logn} slice", slices)
+        want = Counter({(g1, 256, g["lanes"][cv]): slices * groups
+                        for g1, cv in ((True, G1P), (False, G2P_ISO))})
+        if seen_scans != want or counts["scan_cols_packed"] != \
+                2 * slices * groups:
+            raise RuntimeError(f"scans ran at {dict(seen_scans)}, phase 2 "
+                               f"checked {dict(want)}")
+        if set(seen_passes) - ntt_checked or not seen_passes or \
+                sum(seen_passes.values()) != counts["ntt_fused_pass"]:
+            raise RuntimeError(f"fused NTT passes ran at "
+                               f"{dict(seen_passes)}, phase 2 checked "
+                               f"{sorted(ntt_checked)}")
+        log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
+            f"{json.dumps([list(k) + [v] for k, v in seen_passes.items()])}")
+        need(counts, ("add", "ntt_fused_pass"), f"the 2^{logn} prove")
+        return slices, groups
 
     # ---------------------------------------------------------- phase 4 --
     log(f"phase4: generate sqchain{1 << LOGN_BIG} on the card")
@@ -1065,35 +1194,20 @@ def main() -> int:
     log(f"phase8: generate sqchain{1 << LOGN_SEG} on the card")
     D.reset_counts()
     t0 = time.perf_counter()
-    zpath, wpath = fixtures.generate(LOGN_SEG, fixdir, device="cuda")
+    seg_parts = {}
+    zpath, wpath = fixtures.generate(LOGN_SEG, fixdir, device="cuda",
+                                     parts=seg_parts)
     gen_seg_s = time.perf_counter() - t0
     gen_counts = dict(D.counts)
-    log(f"  generated in {gen_seg_s:.1f}s launches {json.dumps(gen_counts)} "
+    log(f"  generated in {gen_seg_s:.1f}s parts {json.dumps(seg_parts)} "
+        f"launches {json.dumps(gen_counts)} "
         f"sha256 {json.dumps(sha256s(zpath, wpath))}")
     need(gen_counts, ("add_mixed_packed", "add_mixed"),
          f"the 2^{LOGN_SEG} fixture generator")
     D.reset_counts()
     seg_cold, seg_peak, prover = logged_prove(zpath, wpath, "seg_cold")
     seg_counts = dict(D.counts)
-    nwin = -(-GLV_BITS // prover.c_bits)
-    groups = nwin // max(g for g in range(1, prover.window_group + 1)
-                         if nwin % g == 0)
-    slices = 2 * prover.nmax // prover.segment if prover.segment else 1
-    check_widths("2^22 slice", slices)
-    log(f"  segment {prover.segment} c_bits {prover.c_bits} slices {slices} "
-        f"window groups {groups} launches {json.dumps(seg_counts)}")
-    if (prover.nmax, prover.segment, prover.c_bits, nwin // groups) != \
-            (1 << LOGN_SEG, seg, seg_c, seg_G):
-        raise RuntimeError(
-            f"the 2^{LOGN_SEG} prove ran nmax {prover.nmax} segment "
-            f"{prover.segment} c {prover.c_bits} group {nwin // groups}, "
-            f"phase 2 checked the kernels for {1 << LOGN_SEG}, {seg}, "
-            f"{seg_c}, {seg_G}")
-    if seg_counts["scan_cols_packed"] != 2 * slices * groups:
-        raise RuntimeError(
-            f"scan_cols_packed launched {seg_counts['scan_cols_packed']} "
-            f"times, expected {2 * slices * groups}")
-    need(seg_counts, ("add", "ntt_fused_pass"), f"the 2^{LOGN_SEG} prove")
+    slices, groups = check_segmented(prover, LOGN_SEG, seg_counts)
     seg_warm, seg_peak2 = warm_prove(prover, zpath, wpath, "seg_warm")
     rows_seg, seg_front_peak, _ = front_rows(prover, wpath)
     del rows_seg
@@ -1112,11 +1226,67 @@ def main() -> int:
         "msms_other_s": seg_warm["msms"] - scan_s,
         "peak_mem_bytes": max(seg_peak, seg_peak2),
         "front_peak_mem_bytes": seg_front_peak,
-        "fixture_gen_s": gen_seg_s, "segment": prover.segment,
+        "fixture_gen_s": gen_seg_s, "fixture_gen_parts": seg_parts,
+        "segment": prover.segment,
         "c_bits": prover.c_bits, "slices": slices, "window_groups": groups,
         "card": card}}))
 
     # ---------------------------------------------------------- phase 9 --
+    name = f"sqchain{1 << LOGN_MAX}"
+    log(f"phase9: generate {name} on the card")
+    if os.path.isdir(fixdir):
+        for f in os.listdir(fixdir):
+            if f.startswith("sqchain") and not f.startswith(name + "."):
+                os.remove(os.path.join(fixdir, f))
+    os.makedirs(fixdir, exist_ok=True)
+    host = {"machine_before": machine(fixdir), "rss_before": rss_now()}
+    log("  machine:", json.dumps(host["machine_before"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_counts()
+    parts = {}
+    t0 = time.perf_counter()
+    with RssPeak() as gen_rss:
+        zpath, wpath = fixtures.generate(LOGN_MAX, fixdir, device="cuda",
+                                         parts=parts)
+    gen_s = time.perf_counter() - t0
+    max_gen_counts = dict(D.counts)
+    host["generator_rss_peak"] = gen_rss.peak
+    gen_peak = torch.cuda.max_memory_allocated()
+    log(f"  generated in {gen_s:.1f}s parts {json.dumps(parts)} "
+        f"device peak {gen_peak} B rss peak {gen_rss.peak} B"
+        f" launches {json.dumps(max_gen_counts)} sizes "
+        f"{os.path.getsize(zpath)} / {os.path.getsize(wpath)} B")
+    need(max_gen_counts, ("add_mixed_packed", "add_mixed"),
+         f"the 2^{LOGN_MAX} fixture generator")
+    torch.cuda.empty_cache()
+    D.reset_counts()
+    with RssPeak() as cli_rss:
+        cold, cold_peak, prover = logged_prove(zpath, wpath, "max_cold")
+    max_counts = dict(D.counts)
+    host["cli_rss_peak"] = cli_rss.peak
+    host["machine_after"] = machine(fixdir)
+    slices, groups = check_segmented(prover, LOGN_MAX, max_counts)
+    peaks = {}
+    warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks)
+    setup = dict(prover.setup_phases)
+    out = {
+        "cold": cold, "warm": warm, "cli_wall_s": walls["max_cold"],
+        "setup": setup, "generator_s": gen_s, "generator_parts": parts,
+        "peak_mem_bytes": {"generator": gen_peak, "cli_cold": cold_peak,
+                           **{f"warm_{k}": v for k, v in peaks.items()}},
+        "card_mem_bytes": torch.cuda.get_device_properties(0).total_memory,
+        "launches": max_counts, "generator_launches": max_gen_counts,
+        "nmax": prover.nmax, "segment": prover.segment,
+        "c_bits": prover.c_bits, "window_group": geo[LOGN_MAX]["G"],
+        "slices": slices, "window_groups": groups,
+        "ntt_sequential": prover.ntt_seq, "host": host, "card": card}
+    prover.release()
+    del prover
+    torch.cuda.empty_cache()
+    log(json.dumps({f"prove_2^{LOGN_MAX}": out}))
+
+    # --------------------------------------------------------- phase 10 --
     # per kernel: source, the TPU kernel it replaces, the counts of the
     # run whose path it is on, and the checked case at that path's shape
     # (the generator runs add_mixed_packed on G1 and add_mixed on G2)
@@ -1146,7 +1316,9 @@ def main() -> int:
             f"server 2^{LOGN_BIG} request": server_counts,
             "server sqchain64 request": server_small_counts,
             f"2^{LOGN_SEG} generator": gen_counts,
-            f"2^{LOGN_SEG}": seg_counts}
+            f"2^{LOGN_SEG}": seg_counts,
+            f"2^{LOGN_MAX} generator": max_gen_counts,
+            f"2^{LOGN_MAX}": max_counts}
     kernels = []
     for name, (src, rep, counts, pick) in meta.items():
         ent = results[name]

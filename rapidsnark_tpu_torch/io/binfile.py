@@ -72,12 +72,24 @@ class BinFile:
         return np.frombuffer(self._buf, dtype=np.uint8, count=size, offset=off)
 
 
+def _pieces(payload) -> list:
+    """A section payload (bytes, a C-contiguous numpy array, or a list of
+    either) -> its byte views, written in turn."""
+    items = payload if isinstance(payload, list) else [payload]
+    return [memoryview(p).cast("B") if isinstance(p, np.ndarray)
+            else memoryview(p) for p in items]
+
+
 def write_binfile(path: str, magic: str, version: int,
-                  sections: List[Tuple[int, bytes]]):
+                  sections: List[Tuple[int, object]]):
+    """Write the container; each section's payload goes to the file
+    piece by piece, never joined with another in memory."""
     assert len(magic) == 4
     with open(path, "wb") as f:
         f.write(magic.encode("latin1"))
         f.write(struct.pack("<II", version, len(sections)))
         for s_type, payload in sections:
-            f.write(struct.pack("<IQ", s_type, len(payload)))
-            f.write(payload)
+            pieces = _pieces(payload)
+            f.write(struct.pack("<IQ", s_type, sum(p.nbytes for p in pieces)))
+            for p in pieces:
+                f.write(p)

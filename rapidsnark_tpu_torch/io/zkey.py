@@ -38,7 +38,7 @@ from .binfile import BinFile, write_binfile
 
 GROTH16_PROTOCOL_ID = 1
 
-_COEF_DTYPE = np.dtype([
+COEF_DTYPE = np.dtype([
     ("m", "<u4"), ("c", "<u4"), ("s", "<u4"), ("coef", "<u4", (8,)),
 ])
 
@@ -139,7 +139,7 @@ def read_zkey(path: str) -> ZKey:
 
     n_coefs = f.section_size(4) // (12 + n8r)
     coef_raw = np.frombuffer(
-        f.section_bytes(4), dtype=_COEF_DTYPE, count=n_coefs, offset=4)
+        f.section_bytes(4), dtype=COEF_DTYPE, count=n_coefs, offset=4)
     coef_m = np.ascontiguousarray(coef_raw["m"])
     coef_c = np.ascontiguousarray(coef_raw["c"])
     coef_s = np.ascontiguousarray(coef_raw["s"])
@@ -192,20 +192,35 @@ def _g2_bytes(pt) -> bytes:
             + _mont_bytes_fq(y0) + _mont_bytes_fq(y1))
 
 
-def _pts_section(pts, g2: bool) -> bytes:
+def _pts_section(pts, g2: bool):
     """Point-table section payload. Accepts ref plain-int affine points
     (None = infinity) or an (n, k, 8) u32 Montgomery WORD array — the
-    latter IS the on-disk layout (tools/gen_big_fixture emits it
-    directly from device memory; a python-int round trip per point
-    would dominate 2^24-scale generation)."""
+    latter IS the on-disk layout, written as it is (fixtures.fast_setup
+    emits it from device memory; a python-int round trip per point would
+    dominate 2^24-scale generation)."""
     if isinstance(pts, np.ndarray):
-        return np.ascontiguousarray(pts.astype("<u4")).tobytes()
+        return np.ascontiguousarray(pts, dtype="<u4")
     fn = _g2_bytes if g2 else _g1_bytes
     return b"".join(fn(pt) for pt in pts)
 
 
+def _coef_section(coefs):
+    """Section 4: the u32 count, then the records. Accepts (m, c, s,
+    Montgomery int) tuples or a COEF_DTYPE record array, written as it
+    is."""
+    head = struct.pack("<I", len(coefs))
+    if isinstance(coefs, np.ndarray):
+        return [head, np.ascontiguousarray(coefs, dtype=COEF_DTYPE)]
+    return [head] + [struct.pack("<III", m, c, s)
+                     + coef_mont.to_bytes(NBYTES, "little")
+                     for (m, c, s, coef_mont) in coefs]
+
+
 def write_zkey(path: str, zkey_data) -> None:
-    """Write a ref.groth16.ZKeyData (plain-int points) as a .zkey file."""
+    """Write a ref.groth16.ZKeyData as a .zkey file, section by section
+    (no section is joined with another in memory). Points are plain-int
+    affine tuples or word arrays, coefficients tuples or a record array
+    (_pts_section, _coef_section)."""
     from ..ref.field import P, R_FR
 
     sec1 = struct.pack("<I", GROTH16_PROTOCOL_ID)
@@ -220,11 +235,7 @@ def write_zkey(path: str, zkey_data) -> None:
 
     sec3 = _pts_section(zkey_data.ic, g2=False)
 
-    parts = [struct.pack("<I", len(zkey_data.coefs))]
-    for (m, c, s, coef_mont) in zkey_data.coefs:
-        parts.append(struct.pack("<III", m, c, s)
-                     + coef_mont.to_bytes(NBYTES, "little"))
-    sec4 = b"".join(parts)
+    sec4 = _coef_section(zkey_data.coefs)
 
     sec5 = _pts_section(zkey_data.points_a, g2=False)
     sec6 = _pts_section(zkey_data.points_b1, g2=False)

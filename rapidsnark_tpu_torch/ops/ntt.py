@@ -13,7 +13,9 @@ ops/fused.ntt_butterfly layer at a time. With RSTPU_NTT_FUSE=0
 instead: ops/fused.ntt_tail for the layers on bits 0-6 and one
 ntt_butterfly layer for every bit above. The odd-coset map is the
 gather-free DIF -> (1/N * eta^k at bit-reversed positions) -> DIT form,
-with the multiply folded into the DIT's first pass.
+with the multiply folded into the DIT's first pass. NTTPlan builds its
+tables on the device as products of two short host lists of powers
+(powers_mont), not by a host loop per element.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, device as D
 from ..ref.field import R_FR, fr_w
 from . import field as FF
 from . import fused
@@ -34,65 +36,106 @@ BOTTOM_BITS = 10        # layers in the first (contiguous) pass
 UPPER_BITS = 5          # layers per further pass
 
 
+_POW_LANES = 1 << 20    # Montgomery products per step of powers_mont
+
+
 def ints_to_words(vals) -> np.ndarray:
     """Python ints (< 2^256) -> (n, 8) uint32 little-endian words."""
     buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
     return np.frombuffer(buf, dtype="<u4").reshape(len(vals), 8).copy()
 
 
-def _bitrev_indices(n: int) -> np.ndarray:
+def _host_powers(root: int, count: int, scale: int = 1) -> list:
+    """[mont(scale * root^k) for k < count] as Python ints."""
+    vals, cur = [], scale % R_FR
+    for _ in range(count):
+        vals.append(cur * (1 << 256) % R_FR)
+        cur = cur * root % R_FR
+    return vals
+
+
+def _words_t(vals, device) -> torch.Tensor:
+    return torch.from_numpy(ints_to_words(vals).view(np.int32)).to(device)
+
+
+def powers_mont(root: int, count: int, scale: int = 1,
+                device="cpu") -> torch.Tensor:
+    """[mont(scale * root^k) for k < count] as (count, 8) int32 packed
+    words, built on `device` in two levels: host lists of m ~ sqrt(count)
+    powers, root^j and scale * root^(i*m), then their outer product as Fr
+    Montgomery products (entry i*m + j), _POW_LANES at a time. Canonical
+    Montgomery residues are unique, so the words are the host loop's."""
+    m = 1 << (((max(count, 1) - 1).bit_length() + 1) // 2)
+    rows = -(-count // m)
+    lo = FF.unpack(_words_t(_host_powers(root, m), device))[:, None, :]
+    hi = FF.unpack(_words_t(_host_powers(pow(root, m, R_FR), rows, scale),
+                            device))[:, :, None]
+    out = torch.empty((rows * m, 8), dtype=torch.int32, device=device)
+    step = max(1, _POW_LANES // m)
+    for r in range(0, rows, step):
+        blk = FR.mul(hi[:, r:r + step], lo)                  # (16, k, m)
+        out[r * m:(r + blk.shape[1]) * m] = FF.pack(blk).reshape(-1, 8)
+    return out[:count]
+
+
+def bitrev_indices(n: int, device="cpu") -> torch.Tensor:
+    """The bit-reversal permutation of n = 2^k positions (int64)."""
     bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(idx)
     for b in range(bits):
         rev |= ((idx >> b) & 1) << (bits - 1 - b)
     return rev
 
 
-def _powers_mont(root: int, count: int, scale: int = 1) -> np.ndarray:
-    """[mont(scale * root^k) for k < count] as (count, 8) words."""
-    vals, cur = [], scale % R_FR
-    for _ in range(count):
-        vals.append(cur * (1 << 256) % R_FR)
-        cur = cur * root % R_FR
-    return ints_to_words(vals)
+TABLES = ("fwd_tw", "inv_tw", "ninv", "bitrev", "coset", "coset_ninv_br")
 
 
 class NTTPlan:
-    """Tables for domain size N = 2^power (numpy, (rows, 8) u32 words):
-    fwd_tw / inv_tw (N/2 twiddles), ninv (1/N), bitrev, coset (eta^k),
-    coset_ninv_br (1/N * eta^k at bit-reversed positions)."""
+    """Tables for domain size N = 2^power, built on `device` (resolved as
+    every entry point does: the card unless the caller asks for the CPU)
+    as packed (rows, 8) int32 Montgomery words: fwd_tw / inv_tw (N/2
+    twiddles), ninv (1/N), bitrev (int64 positions), coset (eta^k),
+    coset_ninv_br (1/N * eta^k at bit-reversed positions, one device
+    index of the natural table). `keep` names the tables to build (default
+    all); the words equal the JAX package's NTTPlan."""
 
-    def __init__(self, power: int):
+    def __init__(self, power: int, device=None, keep=None):
         self.power = power
         self.n = 1 << power
+        self.device = D.resolve(device)
+        dev = self.device
         w = fr_w(power)
-        winv = pow(w, -1, R_FR)
         half = max(self.n // 2, 1)
-        self.fwd_tw = _powers_mont(w, half)
-        self.inv_tw = _powers_mont(winv, half)
-        self.ninv = ints_to_words(
-            [pow(self.n, -1, R_FR) * (1 << 256) % R_FR])[0]
-        self.bitrev = _bitrev_indices(self.n)
         self.eta = fr_w(power + 1)
-        self.coset = _powers_mont(self.eta, self.n)
-        tbl = _powers_mont(self.eta, self.n, pow(self.n, -1, R_FR))
-        self.coset_ninv_br = np.ascontiguousarray(tbl[self.bitrev])
+        ninv = pow(self.n, -1, R_FR)
+        want = set(TABLES if keep is None else keep)
+        t: Dict[str, torch.Tensor] = {}
+        if "fwd_tw" in want:
+            t["fwd_tw"] = powers_mont(w, half, device=dev)
+        if "inv_tw" in want:
+            t["inv_tw"] = powers_mont(pow(w, -1, R_FR), half, device=dev)
+        if "ninv" in want:
+            t["ninv"] = _words_t([ninv * (1 << 256) % R_FR], dev)[0]
+        if want & {"bitrev", "coset_ninv_br"}:
+            t["bitrev"] = bitrev_indices(self.n, dev)
+        if "coset" in want:
+            t["coset"] = powers_mont(self.eta, self.n, device=dev)
+        if "coset_ninv_br" in want:
+            t["coset_ninv_br"] = powers_mont(
+                self.eta, self.n, ninv, device=dev)[t["bitrev"]]
+        self._tables = {k: v for k, v in t.items() if k in want}
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """The tables as tensors on the plan's device (words as int32
+        bits)."""
+        return dict(self._tables)
 
     def arrays(self) -> Dict[str, np.ndarray]:
-        return {"fwd_tw": self.fwd_tw, "inv_tw": self.inv_tw,
-                "ninv": self.ninv, "bitrev": self.bitrev,
-                "coset": self.coset, "coset_ninv_br": self.coset_ninv_br}
-
-    def tensors(self, device, keep=None) -> Dict[str, torch.Tensor]:
-        """The tables as device tensors (words as int32 bits)."""
-        out = {}
-        for k, v in self.arrays().items():
-            if keep is not None and k not in keep:
-                continue
-            out[k] = (torch.from_numpy(v) if k == "bitrev"
-                      else torch.from_numpy(v.view(np.int32))).to(device)
-        return out
+        """Host copies: (rows, 8) uint32 words, bitrev int64."""
+        return {k: v.cpu().numpy() if k == "bitrev"
+                else v.cpu().numpy().view(np.uint32)
+                for k, v in self._tables.items()}
 
 
 def _passes(logn: int):

@@ -12,10 +12,11 @@ Counterpart of `rapidsnark_tpu/prover.py` on its single-device path:
 Given the same (r, s) the proof is byte-identical to the reference's.
 
 Past 2^21 points the MSMs run segmented (config.msm_segment, or the
-`segment` argument): the scan's working set is then a slice's. The card
-holds the tables and the front of a 2^22 prove whole, so none of the JAX
-package's other memory workarounds (blocked G1 tables, stage paging,
-layout pinning, chunked maps) is carried over.
+`segment` argument): the scan's working set is then a slice's. An H100's
+80 GB hold the tables, the front and the MSMs of a 2^24 prove whole
+(`prove(peaks=)` measures each stage; PERF.md has the peaks), so none of
+the JAX package's other memory workarounds (blocked G1 tables, stage
+paging, layout pinning, the chunked front) is carried over.
 """
 
 from __future__ import annotations
@@ -151,9 +152,9 @@ class Prover:
         with self._setup_phase("coef_binning"):
             self._bin_coefficients(zkey)
         with self._setup_phase("ntt_plan"):
-            plan = NTTPlan(self.power)
-            self.ntt_arrays = plan.tensors(
-                dev, keep=("fwd_tw", "inv_tw", "coset_ninv_br"))
+            self.ntt_arrays = NTTPlan(
+                self.power, dev,
+                keep=("fwd_tw", "inv_tw", "coset_ninv_br")).tensors()
         self.last_phases: Dict[str, float] = {}
         self.released = False
 
@@ -290,15 +291,32 @@ class Prover:
         rows[2, :self.n_c] = witness[self.n_public + 1:]
         return rows
 
-    def msms(self, rows, tables):
+    def msms(self, rows, tables, peaks=None):
         """The five MSMs -> window totals (W, 4, 3, 8) and (W, 1, 6, 8)."""
         h_row, wit_row, c_row = rows[0], rows[1], rows[2]
-        g1_sc = torch.stack([h_row, wit_row, wit_row, c_row])
-        g1w = MSM.msm(G1P, tables["pts_g1"], g1_sc, self.c_bits,
-                      self.window_group, segment=self.segment)
-        g2w = MSM.msm(G2P, tables["pts_g2"], wit_row[None], self.c_bits,
-                      self.window_group, segment=self.segment)
+        with self._peak("msm_g1", peaks):
+            g1_sc = torch.stack([h_row, wit_row, wit_row, c_row])
+            g1w = MSM.msm(G1P, tables["pts_g1"], g1_sc, self.c_bits,
+                          self.window_group, segment=self.segment)
+            del g1_sc
+        with self._peak("msm_g2", peaks):
+            g2w = MSM.msm(G2P, tables["pts_g2"], wit_row[None], self.c_bits,
+                          self.window_group, segment=self.segment)
         return g1w, g2w
+
+    @contextlib.contextmanager
+    def _peak(self, name: str, peaks):
+        """peaks[name] = the card's peak of allocated bytes while the
+        block runs (the resident tables included); nothing when peaks is
+        None or on the CPU. Resets the allocator's peak counter."""
+        if peaks is None or self.device.type != "cuda":
+            yield
+            return
+        self._sync()
+        torch.cuda.reset_peak_memory_stats(self.device)
+        yield
+        self._sync()
+        peaks[name] = torch.cuda.max_memory_allocated(self.device)
 
     def release(self) -> None:
         """Drop every device table; the instance cannot prove afterwards."""
@@ -313,10 +331,13 @@ class Prover:
             torch.cuda.synchronize(self.device)
 
     def prove(self, witness_words: np.ndarray, r: Optional[int] = None,
-              s: Optional[int] = None) -> Tuple[Proof, list]:
+              s: Optional[int] = None,
+              peaks: Optional[dict] = None) -> Tuple[Proof, list]:
         """witness_words: (nVars, 8) uint32 standard-form values (the wtns
         section-2 payload). Returns (Proof, public signal ints); fills
-        last_phases with front / msms / host / total seconds."""
+        last_phases with front / msms / host / total seconds, and `peaks`
+        (when given, on the card) with the device peak of the front and
+        of each MSM stage in bytes."""
         if r is None:
             r = sample_rs()
         if s is None:
@@ -329,12 +350,12 @@ class Prover:
                              f"({self.n_vars}, 8)")
         self.last_phases = {}
         tables = self.tables()
-        with phase("front", self.last_phases):
+        with phase("front", self.last_phases), self._peak("front", peaks):
             witness = _i32(wit).to(self.device)
             rows = self.front(witness, tables)
             self._sync()
         with phase("msms", self.last_phases):
-            g1w, g2w = self.msms(rows, tables)
+            g1w, g2w = self.msms(rows, tables, peaks)
             g1w = g1w.cpu().numpy().view(np.uint32)
             g2w = g2w.cpu().numpy().view(np.uint32)
 

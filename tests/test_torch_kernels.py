@@ -281,3 +281,33 @@ def test_wrappers_count_launches():
     TFU.add(G1P, p, p)
     TFU.add_plain(G1P, p, p)
     assert D.counts["add"] == 1
+
+
+@pytest.mark.cuda
+def test_ntt_plan_on_card_equals_cpu_plan():
+    """NTTPlan's device-built tables at 2^20: the card's words are the
+    CPU's."""
+    dev = _dev()
+    from rapidsnark_tpu_torch.ops.ntt import NTTPlan
+    card, cpu = NTTPlan(20, dev).tensors(), NTTPlan(20, "cpu").tensors()
+    assert sorted(card) == sorted(cpu)
+    for k, v in cpu.items():
+        assert card[k].device.type == "cuda"
+        assert torch.equal(card[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_fast_setup_on_card_writes_the_cpu_bytes(tmp_path):
+    """fixtures.fast_setup at 2^10 (scalars, ladders on the kernels) on
+    the card writes the zkey the CPU path writes."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import fixtures
+    from rapidsnark_tpu_torch.io.zkey import write_zkey
+    out = {}
+    for where in (dev, "cpu"):
+        zk = fixtures.fast_setup(fixtures.sqchain_coo((1 << 10) - 2),
+                                 seed="bench-10", device=where)
+        path = tmp_path / f"{torch.device(where).type}.zkey"
+        write_zkey(str(path), zk)
+        out[where] = path.read_bytes()
+    assert out[dev] == out["cpu"]

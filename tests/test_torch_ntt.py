@@ -32,7 +32,7 @@ def _packed(a) -> torch.Tensor:
 
 @pytest.mark.parametrize("power", [6, 12])
 def test_plan_tables_match_jax(power):
-    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power)
+    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power, "cpu")
     ja, ta = jp.arrays(), tp.arrays()
     for k in ("fwd_tw", "inv_tw", "coset", "coset_ninv_br"):
         assert np.array_equal(words_of(ja[k]), ta[k]), k
@@ -45,21 +45,21 @@ def test_plan_tables_match_jax(power):
 def test_to_odd_coset_matches_jax(power, batch):
     """2^6 runs the per-stage ntt_butterfly path, 2^12 the fused passes
     (JAX on the CPU runs its per-stage path: the transforms must agree)."""
-    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power)
+    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power, "cpu")
     ja = {k: jnp.asarray(v) for k, v in jp.arrays().items()}
     x = _poly(power, batch, seed=power)
     want = jax.jit(lambda v: JN.to_odd_coset(v, ja, jp.eta))(jnp.asarray(x))
-    got = TN.to_odd_coset(_packed(x), tp.tensors("cpu"))
+    got = TN.to_odd_coset(_packed(x), tp.tensors())
     assert np.array_equal(port_words(got), words_of(want))
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_matches_jax(inverse, power=6):
-    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power)
+    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power, "cpu")
     ja = {k: jnp.asarray(v) for k, v in jp.arrays().items()}
     x = _poly(power, (2,), seed=3)
     want = jax.jit(lambda v: JN.ntt(v, ja, inverse=inverse))(jnp.asarray(x))
-    got = TN.ntt(_packed(x), tp.tensors("cpu"), inverse=inverse)
+    got = TN.ntt(_packed(x), tp.tensors(), inverse=inverse)
     assert np.array_equal(port_words(got), words_of(want))
 
 
@@ -78,12 +78,12 @@ def test_plain_fused_pass_matches_jax_fused(dif, power=12):
     """The port's whole fused-pass transform vs the JAX package's fused
     transform (its ntt_fused_pass in Pallas interpret mode), with the
     coset pre-multiply on the DIT side."""
-    tp = TN.NTTPlan(power)
+    tp = TN.NTTPlan(power, "cpu").arrays()
     x = _poly(power, (), seed=5)
-    tw = tp.inv_tw if dif else tp.fwd_tw
+    tw = tp["inv_tw"] if dif else tp["fwd_tw"]
     jtw = jnp.asarray(np.moveaxis(
         np.stack([tw & 0xFFFF, tw >> 16], axis=-1).reshape(-1, 16), 0, 1))
-    pm = None if dif else tp.coset_ninv_br
+    pm = None if dif else tp["coset_ninv_br"]
     jpm = None if pm is None else jnp.asarray(words_of_packed_rows(pm))
     want = JN._fused_transform(jnp.asarray(x), jtw, dif=dif, pre_mul=jpm)
     got = (TN._stages_dif(_packed(x)[None], torch.from_numpy(
@@ -106,10 +106,10 @@ def test_plain_tail_matches_jax_fused(dif, power=9):
     plain XLA form on the CPU), vs the seven lowest layers as one fused
     pass, and from the JAX per-half twiddle rows carried by convert."""
     from rapidsnark_tpu_torch import convert
-    tp = TN.NTTPlan(power)
+    tp = TN.NTTPlan(power, "cpu").arrays()
     n = 1 << power
     x = _poly(power, (2,), seed=7)
-    tw = tp.inv_tw if dif else tp.fwd_tw
+    tw = tp["inv_tw"] if dif else tp["fwd_tw"]
     tws = JN._tail_tws(_jax_rows(tw), n, 7)
     assert sorted(tws) == [1, 2, 4, 8, 16, 32, 64]
     # one polynomial per call: the JAX plain form's field mul does not
@@ -134,17 +134,17 @@ def test_to_odd_coset_per_stage(power, monkeypatch):
     layer per upper bit gives the fused configuration's words and the JAX
     package's (which runs per stage under the same setting)."""
     from rapidsnark_tpu_torch import config, device as D
-    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power)
+    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power, "cpu")
     ja = {k: jnp.asarray(v) for k, v in jp.arrays().items()}
     x = _poly(power, (), seed=power)
-    fusedw = TN.to_odd_coset(_packed(x), tp.tensors("cpu"))
+    fusedw = TN.to_odd_coset(_packed(x), tp.tensors())
     monkeypatch.setenv("RSTPU_NTT_FUSE", "0")
     assert not config.ntt_fuse(1 << power) and not JN._fuse_enabled(1 << power)
     calls = []
     real = TFU.ntt_tail
     monkeypatch.setattr(TFU, "ntt_tail",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    got = TN.to_odd_coset(_packed(x), tp.tensors("cpu"))
+    got = TN.to_odd_coset(_packed(x), tp.tensors())
     assert len(calls) == 2          # one DIF tail, one DIT tail
     assert torch.equal(got, fusedw)
     want = jax.jit(lambda v: JN.to_odd_coset(v, ja, jp.eta))(jnp.asarray(x))
