@@ -7,12 +7,12 @@ Needs one CUDA card (sm_90a: H100) and nvcc; exits non-zero without
 them, or when run away from the repository. Phases, in order; any
 failure exits non-zero:
   1. the card's name and power limit, torch / CUDA versions, and the
-     build of the three kernel libraries (all nvcc processes started
+     build of the four kernel libraries (all nvcc processes started
      together) with each kernel's registers, stack frame and spills,
      `nvcc --version`, and per curve kernel the SASS counts of IMAD*,
      IADD3* and all instructions per Montgomery product (cuobjdump;
      skipped with a line where it is missing);
-  2. each of the eight kernels against its plain PyTorch version on the
+  2. each of the ten kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed with CUDA events beside the plain version and the
@@ -23,14 +23,26 @@ failure exits non-zero:
      2^22 and over 1 x 2^24), and for dma_gather the tool's default rows
      and the 2^20
      prove's G1 and G2 rows, with a permutation and with repeated rows,
-     beside torch.index_select (library_ms). `add` is timed alone (its C
-     entry point back to back: a narrow launch takes less time than the
-     wrapper's Python) and through its wrapper; each scan and add shape
-     prints its launch geometry (threads and blocks, resident blocks per
-     SM from the occupancy API, waves);
+     beside torch.index_select (library_ms); the front kernels at the
+     2^20, 2^22 and 2^24 proves' shapes (fr_slot_acc with K = 1 and 3
+     slots a row and random witness indices, and at 2^20 with a spilled
+     row of 100 and one of 2^15 + 700 terms; fr_pointwise's products,
+     h, a row broadcast over the per-stage stack and sqchain64's, and
+     the 2^24 split's scalar product and difference), at 2^24 held
+     against the plain version on a leading slice of the same inputs
+     (2^21 rows, 2^22 elements: at full width it needs ~55 GB). `add` is timed
+     alone (its C entry point back to back: a narrow launch takes less
+     time than the wrapper's Python) and through its wrapper; each scan,
+     add and strict mixed add shape prints its launch geometry (threads
+     and blocks, resident blocks per SM from the occupancy API, waves);
   3. prove the committed tests/fixtures/sqchain64 through the CLI entry
      point and pairing-verify (the small circuit's NTTs run
-     ntt_butterfly);
+     ntt_butterfly); then the multiplier with one record split into 100
+     parts and into 2^15 + 700 (spilled rows) on a Prover on the card,
+     each proof byte-equal to ref/groth16.prove for a fixed (r, s) and
+     pairing-verified. From here on, plain FieldOps arithmetic and limb
+     (un)packing on a CUDA tensor raise while Prover.front runs, and
+     every prove and request must launch fr_slot_acc and fr_pointwise;
   4. generate bench_fixtures/sqchain1048576.{zkey,wtns} on the card and
      prove it through the CLI entry point (cold), then once more on the
      loaded Prover (warm); the proof must pairing-verify, add /
@@ -69,7 +81,14 @@ failure exits non-zero:
      the CLI entry point (cold), then on the loaded Prover (warm, with
      the device peak of the front and of each MSM stage); both proofs
      must pairing-verify, and every scan, add and fused NTT pass must
-     have run at a shape phase 2 checked; a `prove_2^24` JSON line;
+     have run at a shape phase 2 checked; the warm prove has a fixed
+     (r, s). Then the same zkey with every coefficient record split in
+     three distinct parts (v c1, v c2, v (1 - c1 - c2), made on the card
+     by fr_pointwise) proves on a new Prover (K = 3 slots a row) with
+     the same (r, s): its proof must equal the K = 1 proof byte for byte
+     and pairing-verify, and its front's peak may exceed the K = 1
+     front's by no more than the larger coefficient tables plus 1 GiB; a
+     `prove_2^24` JSON line;
  10. a `kernels` JSON line, the card line, and the result line last.
 
 Bounds: bytes over 3.35 TB/s (each input read once, each output written
@@ -78,13 +97,18 @@ per clock x 1.98 GHz = 16.7e12/s (H100 SXM; Hopper white paper). A
 Montgomery product of 8 x 8 32-bit limbs is counted as 264 IMADs (two
 64-product passes, a low and a high IMAD each, plus the 8 quotient
 digits); additions are not counted. dma_gather does no arithmetic: its
-bound is its bytes (rows read and written once, 4 bytes an index).
+bound is its bytes (rows read and written once, 4 bytes an index). The
+front kernels read each table once: fr_slot_acc a slot's 8-byte index
+and 32-byte value (only the value of an empty slot), the witness once,
+the spilled records' order, index and value, and writes 32 bytes a row;
+one product a filled slot or spilled record.
 """
 
 import ctypes
 import hashlib
 import json
 import os
+import random
 import re
 import shutil
 import socket
@@ -129,7 +153,7 @@ def bound_ms(nbytes, imads):
 # add, or one scan column; a G2 lane's two threads run two Fq products
 # for each of its 12 / 11 Fq2 products), the divisor of its SASS counts
 KERNEL_MONTS = {"k_add_g1": 17, "k_add_g2": 24, "k_scan_g1": 14,
-                "k_scan_g2": 22}
+                "k_scan_g2": 22, "k_add_mixed_g1": 11, "k_add_mixed_g2": 26}
 SASS_LINE = re.compile(
     r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -255,12 +279,15 @@ def main() -> int:
     from rapidsnark_tpu_torch.io.wtns import read_wtns
     from rapidsnark_tpu_torch.io.zkey import read_zkey, zkey_to_ref
     from rapidsnark_tpu_torch.ops import field as FF, fused, msm as MSM
+    from rapidsnark_tpu_torch.ops import front as FRONT
     from rapidsnark_tpu_torch.ops.ntt import _passes
     from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO
     from rapidsnark_tpu_torch.ops.glv import GLV_BITS
     from rapidsnark_tpu_torch.prover import Prover, host_g1, host_g2
     from rapidsnark_tpu_torch.ref.field import P, R_FR
     from rapidsnark_tpu_torch.ref.groth16 import Proof, verify
+    from rapidsnark_tpu_torch.ref.groth16 import prove as ref_prove
+    from rapidsnark_tpu_torch.utils.limbs import words_to_ints
     from rapidsnark_tpu_torch.server import http as server_http
     from rapidsnark_tpu_torch.server.__main__ import main as server_main
     from rapidsnark_tpu_torch.tools import bench_dma_gather, bench_gather
@@ -427,10 +454,12 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def geometry(op, curve, n):
-        """The launch of rs_add (op 0) / rs_scan_cols (op 1) for n lanes:
+        """The launch of rs_add (op 0) / rs_scan_cols (op 1) /
+        rs_add_mixed_packed (op 2) / rs_add_mixed (op 3) for n lanes:
         threads a block, blocks, resident blocks per SM, waves."""
         buf = (ctypes.c_int * 3)()
-        rc = curve_lib.rs_curve_geometry(op, fused._curve_id(curve), n, buf)
+        cid = (fused._mixed_curve_id if op >= 2 else fused._curve_id)(curve)
+        rc = curve_lib.rs_curve_geometry(op, cid, n, buf)
         if rc:
             raise RuntimeError(f"rs_curve_geometry failed with error {rc}")
         threads, blocks, per_sm = buf
@@ -539,10 +568,10 @@ def main() -> int:
                     p[lanes, :A] = q[lanes]            # p = q
                 q[neg, A // 2:] = FF.pack(FF.FQ.neg(
                     FF.unpack(q[neg, A // 2:])))       # q = -p
-            for name, kern, plain, qq, qbytes in (
-                    ("add_mixed_packed", fused.add_mixed_packed,
+            for op, name, kern, plain, qq, qbytes in (
+                    (2, "add_mixed_packed", fused.add_mixed_packed,
                      fused.add_mixed_packed_plain, q, A * 32),
-                    ("add_mixed", fused.add_mixed, fused.add_mixed_plain,
+                    (3, "add_mixed", fused.add_mixed, fused.add_mixed_plain,
                      to_limbs(q), A * 64)):
                 want, plain_ms = timed_once(lambda: plain(curve, p, qq))
                 got = kern(curve, p, qq)
@@ -554,7 +583,8 @@ def main() -> int:
                 ms = timed(lambda: kern(curve, p, qq), 20)
                 record(name, f"{tag} n={n}", e, ms, plain_ms,
                        n * (2 * L * 32 + qbytes),
-                       n * mont_strict[curve] * MONT_IMADS)
+                       n * mont_strict[curve] * MONT_IMADS,
+                       **geometry(op, curve, n))
         torch.cuda.empty_cache()
 
     # NTT kernels: Fr elements. The fused passes of the 2^20 prove, then
@@ -668,6 +698,99 @@ def main() -> int:
                 del got
         del table, idx, idx64
     torch.cuda.empty_cache()
+
+    # the front kernels. fr_slot_acc at each prove's rows (2 x 2^logn,
+    # K slots a row, witness 2^logn rows, random indices), at 2^20 also
+    # with a spilled row of 100 and one of 2^15 + 700 terms among rows
+    # with a few; at 2^24 the plain version runs on the first 2^21 rows
+    # (it needs ~1.6 KB a slot). fr_pointwise at each prove's N: cvec =
+    # a*b and h; the per-stage coset multiply (3 x 2^20 by a 2^20 row),
+    # sqchain64's (3 x 128 by 128), and the 2^24 split's product of the
+    # ~2^25 coefficient values by one element and their difference
+    plain_rows = 1 << 21       # fr_slot_acc rows; fr_pointwise 2^22 elements
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+
+    def fe_card(mod, shape):
+        """fe's elements, drawn on the card (GBs of them at 2^24)."""
+        w = torch.randint(0, 1 << 32, tuple(shape) + (8,), device=dev,
+                          dtype=torch.int64, generator=gen)
+        w[..., 7] %= mod >> 224
+        return FF.to_i32(w)
+
+    def slot_case(logn, K, spill_terms=None):
+        rows, nv = 2 << logn, 1 << logn
+        wit = fe_card(R_FR, (nv,))
+        cs = torch.randint(0, nv, (rows * K,), device=dev, generator=gen)
+        cv = fe_card(R_FR, (rows * K,))
+        spill, nleft, key = None, 0, f"2^{logn} K={K}"
+        if spill_terms:
+            tgt = np.concatenate([np.full(spill_terms, 5),
+                                  rng.randint(0, rows, size=3000)])
+            rng.shuffle(tgt)
+            nleft = tgt.size
+            order, off = FRONT.spill_csr(torch.from_numpy(tgt).to(dev), rows)
+            spill = (torch.randint(0, nv, (nleft,), device=dev,
+                                   generator=gen),
+                     fe_card(R_FR, (nleft,)), order, off)
+            key += f" spill row of {spill_terms} + 3000 records"
+        got = FRONT.fr_slot_acc(wit, cs, cv, K, spill)
+        sub = rows if rows <= plain_rows else plain_rows
+        want, plain_ms = timed_once(lambda: FRONT.fr_slot_acc_plain(
+            wit, cs[:sub * K], cv[:sub * K], K, spill))
+        torch.cuda.synchronize()
+        e = err(got[:sub], want)
+        del want
+        ms = timed(lambda: FRONT.fr_slot_acc(wit, cs, cv, K, spill), 10)
+        filled = int((cv != 0).any(dim=1).sum())
+        nbytes = (filled * 40 + (rows * K - filled) * 32 + nv * 32
+                  + rows * 32 + (nleft * 44 + (rows + 1) * 4 if spill
+                                 else 0))
+        record("fr_slot_acc", key, e, ms, plain_ms, nbytes,
+               (filled + nleft) * MONT_IMADS, plain_rows=sub)
+
+    for logn, K, terms in ((LOGN_BIG, 1, None), (LOGN_BIG, 3, None),
+                           (LOGN_BIG, 1, 100), (LOGN_BIG, 1, (1 << 15) + 700),
+                           (LOGN_SEG, 1, None), (LOGN_MAX, 1, None),
+                           (LOGN_MAX, 3, None)):
+        slot_case(logn, K, terms)
+        torch.cuda.empty_cache()
+
+    def pointwise_case(op, ashape, bshape, tag):
+        a, b = fe_card(R_FR, ashape), fe_card(R_FR, bshape)
+        c = fe_card(R_FR, ashape) if op == "h" else None
+        got = FRONT.fr_pointwise(op, a, b, c)
+        n, nb = a.numel() // 8, b.numel() // 8
+        # the plain version on a leading slice of a's first axis
+        per = n // ashape[0]
+        k = ashape[0] if n <= 2 * plain_rows else 2 * plain_rows // per
+        a_, c_ = a[:k], None if c is None else c[:k]
+        b_ = b[:k] if b.shape == a.shape else b
+        sub = k * per
+        want, plain_ms = timed_once(
+            lambda: FRONT.fr_pointwise_plain(op, a_, b_, c_))
+        torch.cuda.synchronize()
+        e = err(got[:k], want)
+        del want
+        ms = timed(lambda: FRONT.fr_pointwise(op, a, b, c), 10)
+        ins = {"mul": 1, "sub": 1, "h": 2}[op]
+        record("fr_pointwise", f"{op} {tag}", e, ms, plain_ms,
+               (n * ins + nb + n) * 32,
+               n * {"mul": 1, "sub": 0, "h": 2}[op] * MONT_IMADS,
+               plain_rows=sub)
+
+    for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
+        nn = 1 << logn
+        pointwise_case("mul", (nn,), (nn,), f"2^{logn}")
+        pointwise_case("h", (nn,), (nn,), f"2^{logn}")
+        torch.cuda.empty_cache()
+    pointwise_case("mul", (3, 1 << LOGN_BIG), (1 << LOGN_BIG,),
+                   f"3 x 2^{LOGN_BIG} by a row")
+    pointwise_case("mul", (3, 128), (128,), "3 x 128 by a row")
+    pointwise_case("mul", (2 << LOGN_MAX,), (), f"2^{LOGN_MAX + 1} by one")
+    pointwise_case("sub", (2 << LOGN_MAX,), (2 << LOGN_MAX,),
+                   f"2^{LOGN_MAX + 1}")
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -720,18 +843,24 @@ def main() -> int:
             f"verified True")
         return phases, peak, prover
 
-    def warm_prove(prover, zpath, wpath, tag, peaks=None):
+    def warm_prove(prover, zpath, wpath, tag, peaks=None, rs=(None, None),
+                   proof_out=None):
         """One more prove on a loaded Prover, pairing-verified; `peaks`
         (a dict) receives the device peak of each stage, and then the
-        returned peak is their largest."""
+        returned peak is their largest; `rs` fixes (r, s); the proof is
+        appended to `proof_out` when given."""
         wt = read_wtns(wpath)
         torch.cuda.reset_peak_memory_stats()
-        proof, pub = prover.prove(wt.values, peaks=peaks)
+        D.reset_counts()
+        proof, pub = prover.prove(wt.values, r=rs[0], s=rs[1], peaks=peaks)
         torch.cuda.synchronize()
+        need(D.counts, FRONT_KERNELS, f"the prove {tag}")
         peak = (torch.cuda.max_memory_allocated() if peaks is None
                 else max(peaks.values()))
         phases = dict(prover.last_phases)
         check_proof(zpath, proof, pub, tag)
+        if proof_out is not None:
+            proof_out.append(proof)
         log(f"  prove {tag}: phases {json.dumps(phases)} peak_mem {peak} B "
             + ("" if peaks is None else f"stage peaks {json.dumps(peaks)} ")
             + "verified True")
@@ -765,6 +894,43 @@ def main() -> int:
             if counts[k] == 0:
                 raise RuntimeError(f"{what} launched no {k}")
 
+    # From here on every prove must run the front kernels, and Prover.front
+    # must run no plain field arithmetic and no limb (un)packing on the
+    # card: those raise while it runs
+    FRONT_KERNELS = ("fr_slot_acc", "fr_pointwise")
+    guarded = [(FF.FieldOps, n) for n in (
+        "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
+        "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx", "from_mont",
+        "to_mont", "reduce_wide")] + [
+        (FF, n) for n in ("pack", "unpack", "pack_limb_rows",
+                          "unpack_limb_rows")]
+    plain_fns = {(o, n): getattr(o, n) for o, n in guarded}
+
+    def refuse_on_card(name, fn):
+        def run(*args, **kw):
+            flat = [t for a in args for t in (
+                a if isinstance(a, (list, tuple)) else (a,))]
+            flat = [t for a in flat for t in (
+                a if isinstance(a, (list, tuple)) else (a,))]
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in flat):
+                raise RuntimeError(f"plain {name} ran on a CUDA tensor "
+                                   "inside Prover.front")
+            return fn(*args, **kw)
+        return run
+
+    real_front = Prover.front
+
+    def guarded_front(self, witness, tables):
+        for (o, n), fn in plain_fns.items():
+            setattr(o, n, refuse_on_card(n, fn))
+        try:
+            return real_front(self, witness, tables)
+        finally:
+            for (o, n), fn in plain_fns.items():
+                setattr(o, n, fn)
+
+    Prover.front = guarded_front
+
     log("phase3: prove tests/fixtures/sqchain64")
     fx = os.path.join(HERE, "tests", "fixtures")
     D.reset_counts()
@@ -774,7 +940,54 @@ def main() -> int:
     small_counts = dict(D.counts)
     prover.release()
     log("  launches:", json.dumps(small_counts))
-    need(small_counts, ("ntt_butterfly",), "the sqchain64 prove")
+    need(small_counts, ("ntt_butterfly",) + FRONT_KERNELS,
+         "the sqchain64 prove")
+
+    # the multiplier with record 0 split into k random parts (a row that
+    # spills past its K slots; past 2^15 terms the JAX package's pass is
+    # two-level): the proof equals ref/groth16.prove's for a fixed (r, s)
+    r_fix, s_fix = 1122334455, 9988776655
+    mzk = read_zkey(os.path.join(fx, "multiplier.zkey"))
+    mwt = read_wtns(os.path.join(fx, "multiplier.wtns"))
+    prng = random.Random(91)
+    dense = {}
+    for k in (100, (1 << 15) + 700):
+        orig = words_to_ints(mzk.coef_val[:1])[0]
+        parts = [prng.randrange(R_FR) for _ in range(k - 1)]
+        parts.append((orig - sum(parts)) % R_FR)
+        counts = np.ones(mzk.n_coefs, np.int64)
+        counts[0] = k
+        vals = np.concatenate([np.stack([np.frombuffer(
+            v.to_bytes(32, "little"), "<u4") for v in parts]),
+            mzk.coef_val[1:]])
+        dz = fixtures.split_coefs(mzk, counts, vals)
+        D.reset_counts()
+        dp = Prover(dz, device="cuda")
+        t0 = time.perf_counter()
+        proof, pub = dp.prove(mwt.values, r=r_fix, s=s_fix)
+        dt = time.perf_counter() - t0
+        dcounts = dict(D.counts)
+        need(dcounts, FRONT_KERNELS, f"the multiplier prove with {k} parts")
+        ref_zk = zkey_to_ref(dz)
+        want = ref_prove(ref_zk, words_to_ints(mwt.values), r=r_fix, s=s_fix)
+        if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
+            raise RuntimeError(f"the multiplier proof with a row of {k} "
+                               "terms differs from ref/groth16.prove")
+        if not verify(ref_zk, proof, pub):
+            raise RuntimeError(f"the multiplier proof with a row of {k} "
+                               "terms does not verify")
+        if dp.left_s is None or (dp.acc2_seg is None) != (k < 1 << 15):
+            raise RuntimeError(f"the multiplier with {k} parts did not "
+                               "spill as expected")
+        dense[k] = {"coef_slots": dp.coef_slots,
+                    "spilled": int(dp.left_s.shape[0]), "prove_s": dt,
+                    "launches": dcounts}
+        log(f"  multiplier, record 0 in {k} parts: K {dp.coef_slots}, "
+            f"{dense[k]['spilled']} spilled records, prove {dt:.3f}s, "
+            f"equals ref/groth16.prove, verified True; launches "
+            f"{json.dumps(dcounts)}")
+        dp.release()
+    mzk.close()
 
     def affine_all(pts, g2):
         """Packed projective points (rows, L, 8) on the card -> the host's
@@ -946,7 +1159,8 @@ def main() -> int:
                                f"{sorted(ntt_checked)}")
         log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
             f"{json.dumps([list(k) + [v] for k, v in seen_passes.items()])}")
-        need(counts, ("add", "ntt_fused_pass"), f"the 2^{logn} prove")
+        need(counts, ("add", "ntt_fused_pass") + FRONT_KERNELS,
+             f"the 2^{logn} prove")
         return slices, groups
 
     # ---------------------------------------------------------- phase 4 --
@@ -962,8 +1176,8 @@ def main() -> int:
     big_counts = dict(D.counts)
     log("  launches:", json.dumps(big_counts))
     check_widths("2^20 prove", 1)
-    need(big_counts, ("add", "scan_cols_packed", "ntt_fused_pass"),
-         f"the 2^{LOGN_BIG} prove")
+    need(big_counts, ("add", "scan_cols_packed", "ntt_fused_pass")
+         + FRONT_KERNELS, f"the 2^{LOGN_BIG} prove")
     warm, peak2 = warm_prove(prover, zpath, wpath, "big_warm")
     rows_fused, front_peak, _ = front_rows(prover, wpath)
     extras = phase4_options(prover, zpath, wpath, rows_fused)
@@ -985,7 +1199,7 @@ def main() -> int:
                                                     "per_stage_cold")
         stage_counts = dict(D.counts)
         log("  launches:", json.dumps(stage_counts))
-        need(stage_counts, ("ntt_tail", "ntt_butterfly"),
+        need(stage_counts, ("ntt_tail", "ntt_butterfly") + FRONT_KERNELS,
              "the per-stage prove")
         if stage_counts["ntt_fused_pass"]:
             raise RuntimeError("the per-stage prove ran fused passes")
@@ -1142,15 +1356,18 @@ def main() -> int:
     req_first, pub3 = proved(big_name, zpath, 3, "request 2^20 x0=3")
     server_counts = dict(D.counts)
     log("  launches:", json.dumps(server_counts))
-    need(server_counts, ("add", "scan_cols_packed", "ntt_fused_pass"),
-         "the first 2^20 request")
+    need(server_counts, ("add", "scan_cols_packed", "ntt_fused_pass")
+         + FRONT_KERNELS, "the first 2^20 request")
+    D.reset_counts()
     req_warm, pub5 = proved(big_name, zpath, 5, "request 2^20 x0=5")
+    need(D.counts, FRONT_KERNELS, "the second 2^20 request")
     if pub5 == pub3:
         raise RuntimeError("the second request returned the first's publics")
     D.reset_counts()
     req_small, _ = proved("sqchain64", small_z, 3, "request sqchain64")
     server_small_counts = dict(D.counts)
-    need(server_small_counts, ("ntt_butterfly",), "the sqchain64 request")
+    need(server_small_counts, ("ntt_butterfly",) + FRONT_KERNELS,
+         "the sqchain64 request")
     code, _ = http("POST", "/input/nosuch", b"{}")
     if code != 404:
         raise RuntimeError(f"POST /input/nosuch answered {code}, not 404")
@@ -1267,9 +1484,12 @@ def main() -> int:
     host["cli_rss_peak"] = cli_rss.peak
     host["machine_after"] = machine(fixdir)
     slices, groups = check_segmented(prover, LOGN_MAX, max_counts)
-    peaks = {}
-    warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks)
+    peaks, k1_proof = {}, []
+    warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks,
+                         rs=(r_fix, s_fix), proof_out=k1_proof)
     setup = dict(prover.setup_phases)
+    k1_coef_bytes = (prover.coef_s.numel() * 8 + prover.coef_val.numel() * 4)
+    k1 = (prover.coef_slots, prover.left_s is None)
     out = {
         "cold": cold, "warm": warm, "cli_wall_s": walls["max_cold"],
         "setup": setup, "generator_s": gen_s, "generator_parts": parts,
@@ -1281,6 +1501,79 @@ def main() -> int:
         "c_bits": prover.c_bits, "window_group": geo[LOGN_MAX]["G"],
         "slices": slices, "window_groups": groups,
         "ntt_sequential": prover.ntt_seq, "host": host, "card": card}
+    prover.release()
+    del prover
+    torch.cuda.empty_cache()
+
+    # the same circuit, every coefficient record v split into v c1, v c2
+    # and v (1 - c1 - c2) (Montgomery words, by fr_pointwise on the card):
+    # K = 3 slots a row, the same proof for the same (r, s)
+    log(f"  {name} with every coefficient record in three parts")
+    t0 = time.perf_counter()
+    zk = read_zkey(zpath)
+    c1, c2 = 0x1234567 + (1 << 200), 0x89ABCDEF + (1 << 190)
+    cw = [torch.from_numpy(np.frombuffer(
+        (c * (1 << 256) % R_FR).to_bytes(32, "little"), "<u4")
+        .view(np.int32).copy()).to(dev) for c in (c1, c2)]
+    vals = torch.from_numpy(np.ascontiguousarray(zk.coef_val)
+                            .view(np.int32)).to(dev)
+    split_counts = dict.fromkeys(FRONT_KERNELS, 0)
+    D.reset_counts()
+    p1 = FRONT.fr_pointwise("mul", vals, cw[0])
+    p2 = FRONT.fr_pointwise("mul", vals, cw[1])
+    p3 = FRONT.fr_pointwise("sub", FRONT.fr_pointwise("sub", vals, p1), p2)
+    split_counts.update({k: D.counts[k] for k in FRONT_KERNELS})
+    nz = (vals != 0).any(dim=1)
+    if bool(((p1 == p2).all(dim=1) & nz).any()) or \
+            bool(((p1 == p3).all(dim=1) & nz).any()) or \
+            bool(((p2 == p3).all(dim=1) & nz).any()):
+        raise RuntimeError("a record's three parts are not distinct")
+    parts3 = torch.stack([p1, p2, p3], dim=1).reshape(-1, 8).cpu().numpy()
+    del vals, p1, p2, p3, nz
+    zk3 = fixtures.split_coefs(zk, np.full(zk.n_coefs, 3, np.int64),
+                               parts3.view(np.uint32))
+    del parts3
+    split_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    prover = Prover(zk3, device="cuda")
+    zk.close()
+    del zk, zk3
+    if (prover.coef_slots, prover.left_s is None) != (3, True) or \
+            k1 != (1, True):
+        raise RuntimeError(f"the split zkey binned to K = "
+                           f"{prover.coef_slots} (spilled "
+                           f"{prover.left_s is not None}); the original to "
+                           f"{k1}")
+    k3_coef_bytes = (prover.coef_s.numel() * 8 + prover.coef_val.numel() * 4)
+    k3_first, k3_proofs = {}, []
+    first, _ = warm_prove(prover, zpath, wpath, "max_k3_first",
+                          peaks=k3_first, rs=(r_fix, s_fix),
+                          proof_out=k3_proofs)
+    k3_peaks = {}
+    k3_warm, _ = warm_prove(prover, zpath, wpath, "max_k3_warm",
+                            peaks=k3_peaks, rs=(r_fix, s_fix),
+                            proof_out=k3_proofs)
+    k3_counts = dict(D.counts)
+    pa, pb = k1_proof[0], k3_proofs[-1]
+    if (pa.a, pa.b, pa.c) != (pb.a, pb.b, pb.c):
+        raise RuntimeError("the K = 3 proof differs from the K = 1 proof")
+    allowed = peaks["front"] + (k3_coef_bytes - k1_coef_bytes) + (1 << 30)
+    if k3_peaks["front"] > allowed:
+        raise RuntimeError(f"the K = 3 front peaked at {k3_peaks['front']} "
+                           f"B, over the K = 1 front's {peaks['front']} B "
+                           f"+ the larger tables + 1 GiB = {allowed} B")
+    log(f"  K = 3 (coef_slots {prover.coef_slots}): split {split_s:.1f}s, "
+        f"set-up {json.dumps(prover.setup_phases)}, coefficient tables "
+        f"{k3_coef_bytes} B (K = 1: {k1_coef_bytes} B); front peak "
+        f"{k3_peaks['front']} B (K = 1: {peaks['front']} B, allowed "
+        f"{allowed} B); the proof equals the K = 1 proof, verified True")
+    out["k3"] = {"coef_slots": prover.coef_slots, "split_s": split_s,
+                 "split_launches": split_counts,
+                 "setup": dict(prover.setup_phases), "first": first,
+                 "warm": k3_warm, "first_peaks": k3_first,
+                 "warm_peaks": k3_peaks, "coef_table_bytes": k3_coef_bytes,
+                 "k1_coef_table_bytes": k1_coef_bytes, "launches": k3_counts,
+                 "front_peak_allowed": allowed}
     prover.release()
     del prover
     torch.cuda.empty_cache()
@@ -1309,6 +1602,10 @@ def main() -> int:
                       gen_counts, "g2"),
         "dma_gather": ("csrc/gather.cu", "tools/bench_dma_gather.py:32",
                        tool_counts, f"2^{tools_logn} R=16 perm"),
+        "fr_slot_acc": ("csrc/front.cu", "rapidsnark_tpu/prover.py:578",
+                        big_counts, f"2^{LOGN_BIG} K=1"),
+        "fr_pointwise": ("csrc/front.cu", "rapidsnark_tpu/prover.py:686",
+                         big_counts, f"h 2^{LOGN_BIG}"),
     }
     runs = {"sqchain64": small_counts, f"2^{LOGN_BIG}": big_counts,
             f"2^{LOGN_BIG} per-stage": stage_counts,
@@ -1318,7 +1615,10 @@ def main() -> int:
             f"2^{LOGN_SEG} generator": gen_counts,
             f"2^{LOGN_SEG}": seg_counts,
             f"2^{LOGN_MAX} generator": max_gen_counts,
-            f"2^{LOGN_MAX}": max_counts}
+            f"2^{LOGN_MAX}": max_counts,
+            f"2^{LOGN_MAX} K=3 warm": out["k3"]["launches"],
+            **{f"multiplier {k} parts": v["launches"]
+               for k, v in dense.items()}}
     kernels = []
     for name, (src, rep, counts, pick) in meta.items():
         ent = results[name]

@@ -13,6 +13,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .ops.front import spill_csr
+
 
 def _w(a) -> np.ndarray:
     return np.array(a, dtype=np.uint32, order="C", copy=True)
@@ -34,7 +36,10 @@ def tables_from_jax(tables: dict, device="cpu") -> Dict:
     """JAX `Prover.tables()` (as numpy or arrays) -> the port's tables.
 
     pts_g1 (x, y) leaves (8, 4, n) -> (4, n, 2, 8); pts_g2 ((x0, x1),
-    (y0, y1)) leaves (8, 1, n) -> (1, n, 4, 8); NTT rows -> (n, 8)."""
+    (y0, y1)) leaves (8, 1, n) -> (1, n, 4, 8); NTT rows -> (n, 8). With
+    spilled coefficient records, their target rows (left_seg, through
+    acc2_seg when two-level) also give the port's sorted list
+    (left_order, left_off: ops/front.spill_csr)."""
     x, y = tables["pts_g1"]
     g1 = np.stack([_words_rows(x), _words_rows(y)], axis=-2)
     (x0, x1), (y0, y1) = tables["pts_g2"]
@@ -55,6 +60,11 @@ def tables_from_jax(tables: dict, device="cpu") -> Dict:
                                       .astype(np.int64)).to(device)
     if "left_val" in tables:
         out["left_val"] = _t(tables["left_val"], device)
+        rows = out["left_seg"]
+        if "acc2_seg" in out:
+            rows = out["acc2_seg"][rows]
+        out["left_order"], out["left_off"] = spill_csr(
+            rows, 2 * out["ntt"]["coset_ninv_br"].shape[0])
     return out
 
 

@@ -3,8 +3,8 @@
 // iso-twist (canonical Fq2 law, b3 = 3+27i as a shift-add chain). For
 // the fixture generator's fixed-base ladders: `add_mixed_packed` and
 // `add_mixed`, the strict (canonical) mixed add on G1 and on G2's
-// original twist (b3 = 9/(9+i), a full Fq2 product), the affine operand
-// as packed words or as 16-bit limbs.
+// original twist (b3 = 9/(9+i), a product by a constant), the affine
+// operand as packed words or as 16-bit limbs.
 //
 // Replaces the TPU kernels rapidsnark_tpu/ops/fused.py:159 `add`,
 // fused.py:176 `scan_cols_packed`, fused.py:219 `add_mixed_packed` and
@@ -34,10 +34,16 @@
 //     with cp.async while column k is added. A (0,0) column leaves the
 //     accumulator as it is, without its arithmetic where a whole warp's
 //     lanes have one.
-//   * add_mixed_packed / add_mixed: one thread a lane, 11 Fq products on
-//     G1 and 39 on G2 (13 Fq2 products by Karatsuba); `add_mixed` reads
-//     its affine operand as 16 limbs per coordinate and packs limb pairs
-//     in registers, the rest is shared.
+//   * add_mixed_packed / add_mixed: the strict law. G1 one thread a lane
+//     (11 Fq products). G2 two threads a lane on the schedule of `add`
+//     (64-thread blocks, the same register cap): 13 Fq2 products a lane
+//     by Karatsuba, 39 Fq products, ran on one thread at 254-255
+//     registers and eight warps an SM, under half its bound; a thread
+//     now runs 26 (two a schoolbook component of each of 11 products,
+//     two for each of the two products by b3 = 9/(9+i), whose constant
+//     both threads hold). `add_mixed` reads its affine operand as 16
+//     limbs per coordinate and packs limb pairs in registers, the rest
+//     is shared.
 // Points are element-major packed words: a lane's point is L x 8
 // contiguous u32 (L = 3 for G1, 6 for G2: x0 x1 y0 y1 z0 z1), loaded as
 // 16-byte vectors.
@@ -165,65 +171,18 @@ __device__ __forceinline__ void g1_add_mixed(P1& r, const P1& p,
   }
 }
 
-// ---------------------------------------------------------------- G2 ------
-struct P2 {
-  Fe2 x, y, z;
-};
-
-// b3 * t for the zkey's own twist: b3 = 9/(9+i), a full Fq2 product by the
-// constant
-__device__ __forceinline__ void g2_mul_b3(Fe2& r, const Fe2& t) {
-  Fe2 b3;
-  cp8(b3.c0, K_B3_G2[0]);
-  cp8(b3.c1, K_B3_G2[1]);
-  f2_mul(r, t, b3);
-}
-
-// the strict law on G2's own twist: canonical projective + canonical affine
-// (x2, y2), which the caller has checked is not (0,0)
-__device__ __forceinline__ void g2_add_mixed(P2& r, const P2& p,
-                                             const Fe2& x2, const Fe2& y2) {
-  Fe2 t0, t1, s, u, t3, t4, y3l;
-  f2_mul(t0, p.x, x2);
-  f2_mul(t1, p.y, y2);
-  f2_add(s, p.x, p.y);
-  f2_add(u, x2, y2);
-  f2_mul(t3, s, u);
-  f2_sub(t3, t3, t0);
-  f2_sub(t3, t3, t1);
-  f2_mul(t4, y2, p.z);
-  f2_add(t4, t4, p.y);
-  f2_mul(y3l, x2, p.z);
-  f2_add(y3l, y3l, p.x);
-  Fe2 t0_3, t2b, y3b, z3, t1m;
-  f2_dbl(t0_3, t0);
-  f2_add(t0_3, t0_3, t0);
-  g2_mul_b3(t2b, p.z);
-  g2_mul_b3(y3b, y3l);
-  f2_add(z3, t1, t2b);
-  f2_sub(t1m, t1, t2b);
-  Fe2 m1, m2;
-  f2_mul(m1, t4, y3b);
-  f2_mul(m2, t3, t1m);
-  f2_sub(r.x, m2, m1);
-  f2_mul(m1, y3b, t0_3);
-  f2_mul(m2, t1m, z3);
-  f2_add(r.y, m2, m1);
-  f2_mul(m1, t0_3, t3);
-  f2_mul(m2, z3, t4);
-  f2_add(r.z, m2, m1);
-}
-
 // ------------------------------------- G2, one component a thread ------
 // Two neighbouring threads of a warp share a lane: thread c holds
 // component c of every Fq2 value. Adds and subtractions stay in the
 // thread; a product hands both operands' components to the partner
 // (__shfl_xor_sync, 16 words) and each thread computes its own component
 // by schoolbook, c = 0: a0b0 - a1b1, c = 1: a1b0 + a0b1 (two Fq products
-// a thread, where Karatsuba takes three a lane); b3 = 3 + 27i hands over
-// 27t. Every value is canonical, so the words are those of the plain
-// law, whatever the order of its products. Every thread of a warp runs
-// every shuffle.
+// a thread, where Karatsuba takes three a lane); b3 = 3 + 27i (the
+// iso-twist) hands over 27t, and b3 = 9/(9+i) (the zkey's own twist, the
+// strict law) is a product by a constant that both threads hold whole,
+// so only t crosses. Every value is canonical, so the words are those of
+// the plain law, whatever the order of its products. Every thread of a
+// warp runs every shuffle.
 #define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ void xchg8(u32 o[8], const u32 a[8]) {
@@ -265,6 +224,28 @@ __device__ __forceinline__ void s_mul_b3(u32 r[8], const u32 t[8], bool c1) {
   f_sub<FQ_ID>(d, s3, so);
   f_add<FQ_ID>(s27, so, s3);
   sel8(r, c1, s27, d);
+}
+
+// component c1 of b3 * t on the zkey's twist, b3 = (B0, B1) = 9/(9+i):
+// (t0 B0 - t1 B1, t1 B0 + t0 B1)
+__device__ __forceinline__ void s_mul_b3_twist(u32 r[8], const u32 t[8],
+                                               bool c1) {
+  u32 to[8], t0[8], t1[8];
+  xchg8(to, t);
+  f_mul<FQ_ID>(t0, t, K_B3_G2[0]);
+  f_mul<FQ_ID>(t1, to, K_B3_G2[1]);
+  f_sub<FQ_ID>(to, t0, t1);
+  f_add<FQ_ID>(t1, t0, t1);
+  sel8(r, c1, t1, to);
+}
+
+// component c1 of b3 * t: the iso-twist's (ISO) or the zkey twist's b3
+template <bool ISO>
+__device__ __forceinline__ void s_b3(u32 r[8], const u32 t[8], bool c1) {
+  if constexpr (ISO)
+    s_mul_b3(r, t, c1);
+  else
+    s_mul_b3_twist(r, t, c1);
 }
 
 struct Q2 {
@@ -312,7 +293,10 @@ __device__ __forceinline__ void s_add(Q2& r, const Q2& p, const Q2& q,
   f_add<FQ_ID>(r.z, m2, m1);
 }
 
-// g2_add_mixed<true> (the iso-twist), one component a thread; r may alias p
+// projective + affine (x2, y2) != (0,0), one component a thread, on the
+// iso-twist (ISO: the MSM's scan) or on the zkey's twist (the strict
+// mixed adders); r may alias p
+template <bool ISO>
 __device__ __forceinline__ void s_add_mixed(Q2& r, const Q2& p,
                                             const u32 x2[8], const u32 y2[8],
                                             bool c1) {
@@ -331,8 +315,8 @@ __device__ __forceinline__ void s_add_mixed(Q2& r, const Q2& p,
   u32 t0_3[8], t2b[8], y3b[8], z3[8], t1m[8];
   f_dbl<FQ_ID>(t0_3, t0);
   f_add<FQ_ID>(t0_3, t0_3, t0);
-  s_mul_b3(t2b, p.z, c1);
-  s_mul_b3(y3b, y3l, c1);
+  s_b3<ISO>(t2b, p.z, c1);
+  s_b3<ISO>(y3b, y3l, c1);
   f_add<FQ_ID>(z3, t1, t2b);
   f_sub<FQ_ID>(t1m, t1, t2b);
   u32 m1[8], m2[8];
@@ -358,25 +342,6 @@ __device__ __forceinline__ void st_p1(u32* a, const P1& p) {
   st8(a + 8, p.y);
   st8(a + 16, p.z);
 }
-__device__ __forceinline__ void ld_f2(Fe2& e, const u32* a) {
-  ld8(e.c0, a);
-  ld8(e.c1, a + 8);
-}
-__device__ __forceinline__ void st_f2(u32* a, const Fe2& e) {
-  st8(a, e.c0);
-  st8(a + 8, e.c1);
-}
-__device__ __forceinline__ void ld_p2(P2& p, const u32* a) {
-  ld_f2(p.x, a);
-  ld_f2(p.y, a + 16);
-  ld_f2(p.z, a + 32);
-}
-__device__ __forceinline__ void st_p2(u32* a, const P2& p) {
-  st_f2(a, p.x);
-  st_f2(a + 16, p.y);
-  st_f2(a + 32, p.z);
-}
-
 // one affine coordinate of a lane's operand: 8 packed words, or 16 words
 // of one 16-bit limb each, packed in pairs here
 template <bool UNPACKED>
@@ -564,7 +529,7 @@ k_scan_g2(const u32* __restrict__ acc, const u32* __restrict__ cols,
     bool inf = z & __shfl_xor_sync(FULL_MASK, z, 1);
     if (__any_sync(FULL_MASK, !inf)) {
       if (sg != 0) f_neg<FQ_ID>(y2, y2);
-      s_add_mixed(a, a, x2, y2, c1);
+      s_add_mixed<true>(a, a, x2, y2, c1);
       // (0,0) leaves the accumulator as it is: such a lane reads back
       // what it stored last rather than keeping a copy in registers
       if (inf && live) ld_q2(a, k ? out + (e - n) * 48 : acc + i * 48, c1);
@@ -591,49 +556,41 @@ k_add_mixed_g1(const u32* __restrict__ p, const u32* __restrict__ q,
   st_p1(out + i * 24, r);
 }
 
-// p (n, 6, 8); q (n, 4, 8) packed or (n, 4, 16) limbs; the zkey twist
+// p (n, 6, 8); q (n, 4, 8) packed or (n, 4, 16) limbs; the zkey twist.
+// Two threads a lane, as k_add_g2.
 template <bool UNPACKED>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(G2_THREADS, 6)
 k_add_mixed_g2(const u32* __restrict__ p, const u32* __restrict__ q,
                u32* __restrict__ out, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  P2 a, r;
-  ld_p2(a, p + i * 48);
-  const u32* qi = q + i * (UNPACKED ? 64 : 32);
-  Fe2 x2, y2;
-  ld_coord<UNPACKED>(x2.c0, qi, 0);
-  ld_coord<UNPACKED>(x2.c1, qi, 1);
-  ld_coord<UNPACKED>(y2.c0, qi, 2);
-  ld_coord<UNPACKED>(y2.c1, qi, 3);
-  if (f2_is_zero(x2) && f2_is_zero(y2))
-    r = a;
-  else
-    g2_add_mixed(r, a, x2, y2);
-  st_p2(out + i * 48, r);
+  long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long i = t >> 1;
+  bool c1 = t & 1, live = i < n;
+  Q2 a, r;
+  u32 x2[8], y2[8];
+  if (live) {
+    ld_q2(a, p + i * 48, c1);
+    const u32* qi = q + i * (UNPACKED ? 64 : 32);
+    ld_coord<UNPACKED>(x2, qi, c1 ? 1 : 0);
+    ld_coord<UNPACKED>(y2, qi, c1 ? 3 : 2);
+  } else {
+    zero_q2(a);
+#pragma unroll
+    for (int w = 0; w < 8; w++) x2[w] = y2[w] = 0;
+  }
+  int z = is_zero8(x2) && is_zero8(y2);
+  bool inf = z & __shfl_xor_sync(FULL_MASK, z, 1);
+  s_add_mixed<false>(r, a, x2, y2, c1);
+  if (inf) r = a;                              // (0,0) = infinity
+  if (live) st_q2(out + i * 48, r, c1);
 }
 
 static inline unsigned nblocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-// curve: 0 = G1 (strict law), 1 = G2 on the zkey's twist
-template <bool UNPACKED>
-static int launch_add_mixed(int curve, const void* p, const void* q,
-                            void* out, long long n, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (curve == 0)
-    k_add_mixed_g1<UNPACKED><<<nblocks(n, 128), 128, 0, s>>>(
-        (const u32*)p, (const u32*)q, (u32*)out, n);
-  else
-    k_add_mixed_g2<UNPACKED><<<nblocks(n, 128), 128, 0, s>>>(
-        (const u32*)p, (const u32*)q, (u32*)out, n);
-  return (int)cudaGetLastError();
-}
-
-// launch geometry of `add` (op 0) and `scan_cols_packed` (op 1) for n
-// lanes: one thread a G1 lane, two a G2 lane
+// launch geometry for n lanes of `add` (op 0), `scan_cols_packed` (op 1),
+// `add_mixed_packed` (op 2) and `add_mixed` (op 3): one thread a G1 lane,
+// two a G2 lane
 struct Geom {
   const void* fn;
   int threads;        // per block
@@ -642,13 +599,26 @@ struct Geom {
 };
 
 static Geom pick(int op, int curve, long long n) {
+  static const void* const fns[4][2] = {
+      {(const void*)k_add_g1, (const void*)k_add_g2},
+      {(const void*)k_scan_g1, (const void*)k_scan_g2},
+      {(const void*)k_add_mixed_g1<false>, (const void*)k_add_mixed_g2<false>},
+      {(const void*)k_add_mixed_g1<true>, (const void*)k_add_mixed_g2<true>}};
   int T = curve == 0 ? G1_THREADS : G2_THREADS;
-  const void* fn = curve == 0 ? (op == 0 ? (const void*)k_add_g1
-                                         : (const void*)k_scan_g1)
-                              : (op == 0 ? (const void*)k_add_g2
-                                         : (const void*)k_scan_g2);
-  return {fn, T, (long long)nblocks(curve == 0 ? n : 2 * n, T),
-          op == 0 ? 0 : 2 * T * SLOT * 4};
+  return {fns[op][curve != 0], T,
+          (long long)nblocks(curve == 0 ? n : 2 * n, T),
+          op == 1 ? 2 * T * SLOT * 4 : 0};
+}
+
+// the strict mixed adds (op 2, 3); curve: 0 = G1, 1 = G2 on the zkey's twist
+static int launch_add_mixed(int op, int curve, const void* p, const void* q,
+                            void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  Geom g = pick(op, curve, n);
+  void* args[] = {&p, &q, &out, &n};
+  cudaLaunchKernel(g.fn, dim3((unsigned)g.blocks), dim3(g.threads), args,
+                   g.smem, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -677,17 +647,19 @@ int rs_scan_cols(int curve, const void* acc, const void* cols,
 
 int rs_add_mixed_packed(int curve, const void* p, const void* q, void* out,
                         long long n, void* stream) {
-  return launch_add_mixed<false>(curve, p, q, out, n, stream);
+  return launch_add_mixed(2, curve, p, q, out, n, stream);
 }
 
 int rs_add_mixed(int curve, const void* p, const void* q, void* out,
                  long long n, void* stream) {
-  return launch_add_mixed<true>(curve, p, q, out, n, stream);
+  return launch_add_mixed(3, curve, p, q, out, n, stream);
 }
 
-// The geometry `rs_add` (op 0) or `rs_scan_cols` (op 1) launches for n
+// The geometry `rs_add` (op 0), `rs_scan_cols` (op 1),
+// `rs_add_mixed_packed` (op 2) or `rs_add_mixed` (op 3) launches for n
 // lanes: out = {threads per block, blocks, resident blocks per SM}.
 int rs_curve_geometry(int op, int curve, long long n, int* out) {
+  if (op < 0 || op > 3) return (int)cudaErrorInvalidValue;
   Geom g = pick(op, curve, n);
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(

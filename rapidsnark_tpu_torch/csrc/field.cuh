@@ -305,52 +305,6 @@ __device__ __forceinline__ void f_triple_rx(u32 r[8], const u32 a[8]) {
   csub(r, K_P2[F]);
 }
 
-// ---- Fq2 = Fq[i]/(i^2+1), canonical -----------------------------------------
-struct Fe2 {
-  u32 c0[8];
-  u32 c1[8];
-};
-
-__device__ __forceinline__ void f2_add(Fe2& r, const Fe2& a, const Fe2& b) {
-  f_add<FQ_ID>(r.c0, a.c0, b.c0);
-  f_add<FQ_ID>(r.c1, a.c1, b.c1);
-}
-
-__device__ __forceinline__ void f2_sub(Fe2& r, const Fe2& a, const Fe2& b) {
-  f_sub<FQ_ID>(r.c0, a.c0, b.c0);
-  f_sub<FQ_ID>(r.c1, a.c1, b.c1);
-}
-
-__device__ __forceinline__ void f2_neg(Fe2& r, const Fe2& a) {
-  f_neg<FQ_ID>(r.c0, a.c0);
-  f_neg<FQ_ID>(r.c1, a.c1);
-}
-
-__device__ __forceinline__ void f2_dbl(Fe2& r, const Fe2& a) {
-  f_add<FQ_ID>(r.c0, a.c0, a.c0);
-  f_add<FQ_ID>(r.c1, a.c1, a.c1);
-}
-
-// Karatsuba: re = a0b0 - a1b1, im = (a0+a1)(b0+b1) - a0b0 - a1b1, for
-// the strict mixed adds of G2's own twist (the MSM's G2 adders spread an
-// Fq2 product over two threads, curve.cu). Inlined, so that its operands
-// stay in registers.
-__device__ __forceinline__ void f2_mul(Fe2& r, const Fe2& a, const Fe2& b) {
-  u32 m0[8], m1[8], sa[8], sb[8], t[8];
-  f_mul<FQ_ID>(m0, a.c0, b.c0);
-  f_mul<FQ_ID>(m1, a.c1, b.c1);
-  f_add_lazy(sa, a.c0, a.c1);
-  f_add_lazy(sb, b.c0, b.c1);
-  f_mul<FQ_ID>(t, sa, sb);
-  f_sub<FQ_ID>(r.c0, m0, m1);
-  f_sub<FQ_ID>(t, t, m0);
-  f_sub<FQ_ID>(r.c1, t, m1);
-}
-
-__device__ __forceinline__ bool f2_is_zero(const Fe2& a) {
-  return is_zero8(a.c0) && is_zero8(a.c1);
-}
-
 // ---- packed element-major loads / stores (16-byte vectors) ----------------
 __device__ __forceinline__ void ld8(u32 r[8], const u32* p) {
   uint4 a = reinterpret_cast<const uint4*>(p)[0];

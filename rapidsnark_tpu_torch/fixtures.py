@@ -28,6 +28,7 @@ prints the seconds of each part (fast_setup's `parts`) as JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -142,6 +143,26 @@ def _with_public_rows(coo: CooR1CS) -> CooR1CS:
 # ---------------------------------------------------------------------------
 # device helpers
 # ---------------------------------------------------------------------------
+
+def split_coefs(zk, counts, vals):
+    """A zkey whose coefficient record i is counted counts[i] times (the
+    same m, c, s; parts in a row), with the values `vals` ((sum(counts),
+    8) uint32 Montgomery words). Where each record's parts sum to its
+    value mod r (Montgomery form is additive), every linear combination,
+    and so the proof for the same (r, s), stays as it was: a denser
+    coefficient section for the same circuit. The new zkey borrows zk's
+    point tables; close zk only when done with both."""
+    counts = np.asarray(counts, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.uint32)
+    if vals.shape != (int(counts.sum()), 8):
+        raise ValueError(f"split_coefs: {vals.shape} values for "
+                         f"{int(counts.sum())} records")
+    rep = lambda a: np.repeat(a, counts, axis=0)  # noqa: E731
+    return dataclasses.replace(
+        zk, n_coefs=vals.shape[0], coef_m=rep(zk.coef_m),
+        coef_c=rep(zk.coef_c), coef_s=rep(zk.coef_s), coef_val=vals,
+        file=None)
+
 
 def _t32(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32)

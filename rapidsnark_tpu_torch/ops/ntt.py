@@ -13,9 +13,11 @@ ops/fused.ntt_butterfly layer at a time. With RSTPU_NTT_FUSE=0
 instead: ops/fused.ntt_tail for the layers on bits 0-6 and one
 ntt_butterfly layer for every bit above. The odd-coset map is the
 gather-free DIF -> (1/N * eta^k at bit-reversed positions) -> DIT form,
-with the multiply folded into the DIT's first pass. NTTPlan builds its
-tables on the device as products of two short host lists of powers
-(powers_mont), not by a host loop per element.
+with the multiply folded into the DIT's first fused pass (per stage, and
+below 2^12 points, one ops/front.fr_pointwise; it also scales the
+inverse DFT by 1/N). NTTPlan builds its tables on the device as products
+of two short host lists of powers (powers_mont), not by a host loop per
+element.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from .. import config, device as D
 from ..ref.field import R_FR, fr_w
 from . import field as FF
-from . import fused
+from . import front, fused
 from .field import FR
 
 TAIL_MIN_BITS = 12      # the per-stage path has a tail from N = 2^12
@@ -169,7 +171,7 @@ def _apply_stage(x, tw, bit: int, dif: bool):
 
 def _mul_rows(x, m):
     """x (B, n, 8) * m (n, 8), elementwise in Fr."""
-    return FF.pack(FR.mul(FF.unpack(x), FF.unpack(m)[:, None, :]))
+    return front.fr_pointwise("mul", x.contiguous(), m)
 
 
 def _stages_dit(x, tw, pre_mul=None):
@@ -219,8 +221,7 @@ def ntt(x, arrays, inverse: bool = False):
     v = _flat(x)[:, arrays["bitrev"]].contiguous()
     v = _stages_dit(v, arrays["inv_tw"] if inverse else arrays["fwd_tw"])
     if inverse:
-        v = FF.pack(FR.mul(FF.unpack(v), FF.unpack(arrays["ninv"])
-                           [:, None, None]))
+        v = front.fr_pointwise("mul", v, arrays["ninv"])
     return v.reshape(shape)
 
 

@@ -1,10 +1,12 @@
 """Groth16 prover for one device on torch tensors.
 
 Counterpart of `rapidsnark_tpu/prover.py` on its single-device path:
-  coefficient accumulation (groth16.cpp:52-96)  host-binned slots, one
-                                                Fr mul + a slot sum
+  coefficient accumulation (groth16.cpp:52-96)  host-binned slots (rows
+                                                denser than K spill to a
+                                                CSR list), summed by
+                                                ops/front.fr_slot_acc
   coset FFTs (groth16.cpp:99-155)               ops/ntt.to_odd_coset
-  h = a*b - c (groth16.cpp:157-166)             Fr ops
+  h = a*b - c (groth16.cpp:157-166)             ops/front.fr_pointwise
   five MSMs (groth16.cpp:173-204)               ops/msm.msm, the four G1
                                                 MSMs on one row axis, G2
                                                 on the iso-twist
@@ -12,10 +14,12 @@ Counterpart of `rapidsnark_tpu/prover.py` on its single-device path:
 Given the same (r, s) the proof is byte-identical to the reference's.
 
 Past 2^21 points the MSMs run segmented (config.msm_segment, or the
-`segment` argument): the scan's working set is then a slice's. An H100's
-80 GB hold the tables, the front and the MSMs of a 2^24 prove whole
-(`prove(peaks=)` measures each stage; PERF.md has the peaks), so none of
-the JAX package's other memory workarounds (blocked G1 tables, stage
+`segment` argument): the scan's working set is then a slice's. The front
+runs on packed words from end to end, so its working set is its outputs
+and the resident tables whatever the slots per row (K). An H100's 80 GB
+hold the tables, the front and the MSMs of a 2^24 prove (`prove(peaks=)`
+measures each stage; PERF.md has the peaks at K = 1 and K = 3), so none
+of the JAX package's memory workarounds (blocked G1 tables, stage
 paging, layout pinning, the chunked front) is carried over.
 """
 
@@ -30,10 +34,9 @@ import torch
 
 from . import config, device as D
 from .io.zkey import ZKey
-from .ops import field as FF
+from .ops import front as FRONT
 from .ops import msm as MSM
 from .ops.curve import G1P, G2P
-from .ops.field import FR
 from .ops.ntt import NTTPlan, to_odd_coset
 from .ref.field import FQ_CTX, R_FR
 from .ref.groth16 import Proof, sample_rs
@@ -168,9 +171,12 @@ class Prover:
 
     def _bin_coefficients(self, zkey: ZKey) -> None:
         """Bin the coefficient records by target row (a|b, constraint)
-        into K slots per row on the host: the device accumulation is a
-        gather, one mul and a slot sum; denser rows spill to an index_add
-        pass (two-level past the 2^15-term carry headroom)."""
+        into K slots per row on the host; the records past a row's K
+        slots spill to a list sorted by row (left_order, left_off; see
+        ops/front.fr_slot_acc). The spilled records' segment tables keep
+        the JAX package's layout (left_seg, two-level acc2_seg past 2^15
+        terms a row) for ops/convert; the front reads only the sorted
+        list."""
         dev = self.device
         n = self.domain
         seg = zkey.coef_m.astype(np.int64) * n + zkey.coef_c.astype(np.int64)
@@ -198,15 +204,16 @@ class Prover:
         left = np.nonzero(~main)[0]
         cap = 1 << 15
         self.left_s = self.left_val = self.left_seg = self.acc2_seg = None
-        self.acc1_segments = 0
+        self.left_order = self.left_off = None
         if left.size:
             lseg = seg[left]
             lrank = rank[left] - K
             self.left_s = torch.from_numpy(coef_s[left]).to(dev)
             self.left_val = _i32(coef_val[left]).to(dev)
+            self.left_order, self.left_off = FRONT.spill_csr(
+                torch.from_numpy(lseg).to(dev), 2 * n)
             if int(counts.max()) - K < cap:
                 self.left_seg = torch.from_numpy(lseg).to(dev)
-                self.acc1_segments = 2 * n
             else:
                 nsub = (int(counts.max()) - K - 1) // cap + 1
                 if nsub >= cap:
@@ -215,7 +222,6 @@ class Prover:
                 key = lseg * nsub + (lrank >> 15)
                 uniq, inv = np.unique(key, return_inverse=True)
                 self.left_seg = torch.from_numpy(inv.astype(np.int64)).to(dev)
-                self.acc1_segments = int(uniq.shape[0])
                 self.acc2_seg = torch.from_numpy(
                     (uniq // nsub).astype(np.int64)).to(dev)
 
@@ -226,7 +232,8 @@ class Prover:
         out = {"pts_g1": self.pts_g1, "pts_g2": self.pts_g2,
                "coef_s": self.coef_s, "coef_val": self.coef_val,
                "ntt": self.ntt_arrays}
-        for name in ("left_s", "left_val", "left_seg", "acc2_seg"):
+        for name in ("left_s", "left_val", "left_seg", "acc2_seg",
+                     "left_order", "left_off"):
             v = getattr(self, name)
             if v is not None:
                 out[name] = v
@@ -237,51 +244,37 @@ class Prover:
         """witness (nVars, 8) int32 standard-form words -> the rows stack
         (3, nmax, 8) [h, wit, c] of plain little-endian packed scalars."""
         ab, cvec = self._acc(witness, tables)
-        a2, b2, c2 = self._cosets(ab, cvec, tables)
-        hp = self._h_poly(a2, b2, c2)
+        polys = self._cosets(ab, cvec, tables)
+        del ab, cvec          # each stage's inputs die before the next
+        hp = self._h_poly(*polys)
+        del polys
         return self._rows(witness, hp)
 
     def _acc(self, witness, tables):
-        """Coefficient accumulation + pointwise product -> (ab (16, 2, N),
-        cvec (16, N)) canonical evaluations (limb form)."""
+        """Coefficient accumulation + pointwise product -> (ab (2, N, 8),
+        cvec (N, 8)) canonical evaluations, packed."""
         n = self.domain
-        K = self.coef_slots
-        w = FF.unpack(witness[tables["coef_s"]])
-        prod = FR.mul(w, FF.unpack(tables["coef_val"]))  # standard form
-        acc = prod.reshape(16, 2 * n, K).sum(dim=-1)     # columns < 2^31
+        spill = None
         if "left_s" in tables:
-            lprod = FR.mul(FF.unpack(witness[tables["left_s"]]),
-                           FF.unpack(tables["left_val"]))
-            lacc = torch.zeros((16, self.acc1_segments), dtype=torch.int64,
-                               device=acc.device)
-            lacc.index_add_(1, tables["left_seg"], lprod)
-            if "acc2_seg" in tables:
-                lacc = torch.cat([lacc, torch.zeros_like(lacc[:2])], dim=0)
-                mid = FR.reduce_wide(lacc)
-                lacc = torch.zeros((16, 2 * n), dtype=torch.int64,
-                                   device=acc.device)
-                lacc.index_add_(1, tables["acc2_seg"], mid)
-            acc = acc + lacc
-        acc = torch.cat([acc, torch.zeros_like(acc[:2])], dim=0)  # carry room
-        ab = FR.reduce_wide(acc).reshape(16, 2, n)
-        cvec = FR.mul(ab[:, 0], ab[:, 1])
-        return ab, cvec
+            spill = tuple(tables[k] for k in ("left_s", "left_val",
+                                              "left_order", "left_off"))
+        ab = FRONT.fr_slot_acc(witness, tables["coef_s"], tables["coef_val"],
+                               self.coef_slots, spill).reshape(2, n, 8)
+        return ab, FRONT.fr_pointwise("mul", ab[0], ab[1])
 
     def _cosets(self, ab, cvec, tables):
         """Evaluations -> odd-coset evaluations (a2, b2, c2). With
         config.ntt_sequential a, b, c go through one at a time, never
         stacked, so the transform's temporaries are one polynomial's."""
         if self.ntt_seq:
-            return tuple(
-                FF.unpack(to_odd_coset(FF.pack(v), tables["ntt"]))
-                for v in (ab[:, 0], ab[:, 1], cvec))
-        polys = FF.pack(torch.cat([ab, cvec[:, None]], dim=1))  # (3, N, 8)
-        polys = FF.unpack(to_odd_coset(polys, tables["ntt"]))
-        return polys[:, 0], polys[:, 1], polys[:, 2]
+            return tuple(to_odd_coset(v, tables["ntt"])
+                         for v in (ab[0], ab[1], cvec))
+        polys = to_odd_coset(torch.cat([ab, cvec[None]]), tables["ntt"])
+        return polys[0], polys[1], polys[2]
 
     def _h_poly(self, a2, b2, c2):
         """h = fromMontgomery(a2*b2 - c2) (groth16.cpp:162), packed."""
-        return FF.pack(FR.from_mont(FR.sub(FR.mul(a2, b2), c2)))
+        return FRONT.fr_pointwise("h", a2, b2, c2)
 
     def _rows(self, witness, hp):
         rows = torch.zeros((3, self.nmax, 8), dtype=torch.int32,
@@ -323,6 +316,7 @@ class Prover:
         self.pts_g1 = self.pts_g2 = None
         self.coef_s = self.coef_val = None
         self.left_s = self.left_val = self.left_seg = self.acc2_seg = None
+        self.left_order = self.left_off = None
         self.ntt_arrays = {}
         self.released = True
 

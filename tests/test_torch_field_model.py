@@ -178,12 +178,13 @@ def test_mont_schedule_matches_plain_product(field, kind):
 # The adders' schedules (rapidsnark_tpu_torch/csrc/curve.cu), op for op on
 # Python integers with the product above, against the plain group laws:
 # G1's relaxed [0, 2p] law as one thread a lane runs it, and the G2
-# iso-twist's law as two threads a lane run it (thread c holds component c
-# of every Fq2 value; `xchg` is what __shfl_xor_sync(.., 1) hands each
-# thread of the pair). Exact words on both.
+# laws (the iso-twist's, and the strict law on the zkey's twist) as two
+# threads a lane run them (thread c holds component c of every Fq2
+# value; `xchg` is what __shfl_xor_sync(.., 1) hands each thread of the
+# pair). Exact words on all.
 
 from rapidsnark_tpu_torch.ops import fused as TFU               # noqa: E402
-from rapidsnark_tpu_torch.ops.curve import G1P, G2P_ISO         # noqa: E402
+from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO    # noqa: E402
 
 P2 = 2 * P
 C9 = 9 * R % P                 # K_C9: Montgomery form of 9
@@ -298,15 +299,25 @@ def s_add(p, q):
     return _s_tail(t0, t1, t3, t4, s_mul_b3(t2), s_mul_b3(t5))
 
 
-def s_add_mixed(p, x2, y2):
-    """k_scan_g2s's step: projective + affine (x2, y2) != (0,0)."""
+def s_mul_b3_twist(t):
+    """b3 * t on the zkey's twist, b3 = (B0, B1) = 9/(9+i): thread c gets
+    the partner's component of t and holds both of the constant's."""
+    to, (b0, b1) = xchg(t), G2P.b3_mont
+    return [f_add(f_mul(t[1], b0), f_mul(to[1], b1)) if c
+            else f_sub(f_mul(t[0], b0), f_mul(to[0], b1)) for c in (0, 1)]
+
+
+def s_add_mixed(p, x2, y2, b3=s_mul_b3):
+    """k_scan_g2's step (b3 = 3 + 27i on the iso-twist) and, with
+    s_mul_b3_twist, k_add_mixed_g2's strict law: projective + affine
+    (x2, y2) != (0,0)."""
     px, py, pz = p
     t0, t1 = s_mul(px, x2), s_mul(py, y2)
     t3 = lin(f_sub, lin(f_sub, s_mul(lin(f_add, px, py), lin(f_add, x2, y2)),
                         t0), t1)
     t4 = lin(f_add, s_mul(y2, pz), py)
     y3l = lin(f_add, s_mul(x2, pz), px)
-    return _s_tail(t0, t1, t3, t4, s_mul_b3(pz), s_mul_b3(y3l))
+    return _s_tail(t0, t1, t3, t4, b3(pz), b3(y3l))
 
 
 def _s_tail(t0, t1, t3, t4, t2b, y3b):
@@ -392,3 +403,23 @@ def test_scan_schedule_matches_plain_scan(g2):
     got = torch.stack([to_words(rows) for rows in out])
     want = TFU.scan_cols_plain(G2P_ISO if g2 else G1P, acc, cols, sign)
     assert torch.equal(got, want)
+
+
+def test_strict_mixed_schedule_matches_plain_add_mixed():
+    """k_add_mixed_g2 (both forms of its operand share the law): random
+    lanes, (0,0) lanes (the kernel keeps p), q = p and q = -p (z = 1)."""
+    n = 8
+    p, q = rand_words((n, 6), 36), rand_words((n, 4), 37)
+    one = torch.tensor(np.array(words(R % P), np.uint32).view(np.int32))
+    q[1] = 0
+    for lane in (2, 3):
+        p[lane, 4:] = 0
+        p[lane, 4] = one
+        p[lane, :4] = q[lane]
+    q[3, 2:] = FF.pack(FF.FQ.neg(FF.unpack(q[3, 2:])))          # q = -p
+    out = []
+    for a, b in zip(to_ints(p), to_ints(q)):
+        pt = coords(a, True)
+        out.append(flat(pt, True) if not any(b) else flat(
+            s_add_mixed(pt, b[0:2], b[2:4], b3=s_mul_b3_twist), True))
+    assert torch.equal(to_words(out), TFU.add_mixed_packed_plain(G2P, p, q))

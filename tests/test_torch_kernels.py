@@ -1,4 +1,4 @@
-"""The eight CUDA kernels of rapidsnark_tpu_torch against their plain
+"""The ten CUDA kernels of rapidsnark_tpu_torch against their plain
 PyTorch versions, on the card (marker `cuda`; each test skips when no
 card is present). This file imports no JAX, so it runs on a machine
 without it:
@@ -126,10 +126,11 @@ def test_fused_pass_kernel_matches_plain(power, lo_bit, nbits, dif, pre):
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["packed", "limbs"])
 @pytest.mark.parametrize("curve", sorted(MIXED_CURVES))
-@pytest.mark.parametrize("n", [1, 1000])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
 def test_add_mixed_kernels_match_plain(curve, form, n):
     """Random canonical operands with (0,0) lanes, and lanes where the
-    affine operand is +-(the projective one, z = 1)."""
+    affine operand is +-(the projective one, z = 1). Odd lane counts
+    leave a G2 pair's partner, or half a warp, past the end."""
     dev = _dev()
     c, L = MIXED_CURVES[curve]
     A = L - L // 3
@@ -311,3 +312,74 @@ def test_fast_setup_on_card_writes_the_cpu_bytes(tmp_path):
         write_zkey(str(path), zk)
         out[where] = path.read_bytes()
     assert out[dev] == out["cpu"]
+
+
+def _slot_case(rows, K, nvars, seed, dev):
+    """A witness (nvars, 8) and rows*K slots with random indices and
+    values, one slot in five empty (value 0, index 0)."""
+    rs = np.random.RandomState(seed)
+    wit = _fe(R_FR, (nvars,), seed + 1, dev)
+    cs = torch.from_numpy(rs.randint(0, nvars, size=rows * K)).to(dev)
+    cv = _fe(R_FR, (rows * K,), seed + 2, dev)
+    cs[::5] = 0
+    cv[::5] = 0
+    return wit, cs, cv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 1000, 4097])
+def test_slot_acc_kernel_matches_plain(K, rows):
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import front as FRONT
+    wit, cs, cv = _slot_case(rows, K, 700, 20 + K, dev)
+    D.reset_counts()
+    got = FRONT.fr_slot_acc(wit, cs, cv, K)
+    want = FRONT.fr_slot_acc_plain(wit, cs, cv, K)
+    torch.cuda.synchronize()
+    assert D.counts["fr_slot_acc"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", [100, (1 << 15) + 700])
+def test_slot_acc_kernel_spill_rows_match_plain(terms):
+    """Rows with spilled records: one of `terms` terms, two of a few, in
+    warps of their own and in one warp together; the spilled records
+    come unsorted, as the binning leaves them."""
+    dev = _dev()
+    from rapidsnark_tpu_torch.ops import front as FRONT
+    rows, K = 1000, 2
+    wit, cs, cv = _slot_case(rows, K, 700, 30, dev)
+    rs = np.random.RandomState(31)
+    tgt = np.concatenate([np.full(terms, 5), [37, 37, 38, 999, 999, 999]])
+    rs.shuffle(tgt)
+    ls = torch.from_numpy(rs.randint(0, 700, size=tgt.size)).to(dev)
+    lv = _fe(R_FR, (tgt.size,), 32, dev)
+    order, off = FRONT.spill_csr(torch.from_numpy(tgt).to(dev), rows)
+    spill = (ls, lv, order, off)
+    got = FRONT.fr_slot_acc(wit, cs, cv, K, spill)
+    want = FRONT.fr_slot_acc_plain(wit, cs, cv, K, spill)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,ashape,bshape", [
+    ("mul", (1000,), (1000,)), ("mul", (3, 1000), (1000,)),
+    ("mul", (3, 100), ()), ("sub", (4097,), (4097,)),
+    ("h", (4097,), (4097,))])
+def test_pointwise_kernel_matches_plain(op, ashape, bshape):
+    """Same shapes, a row broadcast over a stack, one element over all."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import front as FRONT
+    a, b = _fe(R_FR, ashape, 40, dev), _fe(R_FR, bshape, 41, dev)
+    c = _fe(R_FR, ashape, 42, dev) if op == "h" else None
+    D.reset_counts()
+    got = FRONT.fr_pointwise(op, a, b, c)
+    want = FRONT.fr_pointwise_plain(op, a, b, c)
+    torch.cuda.synchronize()
+    assert D.counts["fr_pointwise"] == 1
+    assert torch.equal(got, want)
