@@ -30,19 +30,32 @@ failure exits non-zero:
      h, a row broadcast over the per-stage stack and sqchain64's, and
      the 2^24 split's scalar product and difference), at 2^24 held
      against the plain version on a leading slice of the same inputs
-     (2^21 rows, 2^22 elements: at full width it needs ~55 GB). `add` is timed
+     (2^21 rows, 2^22 elements: at full width it needs ~55 GB; a spilled
+     row's records in parts of 2^21, summed mod r), and the fixture
+     generator's shape (3 x 2^24 rows of one slot and one spilled row of
+     2^24 terms); the
+     small transforms (3 x 128, 2^10 and 2^11 points: the default
+     dispatch's fused passes, DIF and DIT with the coset pre-multiply)
+     against the per-layer plain version and timed beside the per-layer
+     kernels (RSTPU_NTT_FUSE=0), and a (3, 128) to_odd_coset and a
+     128-point inverse ntt through the port's functions both ways. `add`
+     is timed
      alone (its C entry point back to back: a narrow launch takes less
      time than the wrapper's Python) and through its wrapper; each scan,
      add and strict mixed add shape prints its launch geometry (threads
      and blocks, resident blocks per SM from the occupancy API, waves);
   3. prove the committed tests/fixtures/sqchain64 through the CLI entry
-     point and pairing-verify (the small circuit's NTTs run
-     ntt_butterfly); then the multiplier with one record split into 100
+     point and pairing-verify (the small circuit's NTTs are one fused
+     pass a direction, and no ntt_butterfly runs), and time its front
+     both ways (fused, RSTPU_NTT_FUSE=0); then the multiplier with one
+     record split into 100
      parts and into 2^15 + 700 (spilled rows) on a Prover on the card,
      each proof byte-equal to ref/groth16.prove for a fixed (r, s) and
      pairing-verified. From here on, plain FieldOps arithmetic and limb
-     (un)packing on a CUDA tensor raise while Prover.front runs, and
-     every prove and request must launch fr_slot_acc and fr_pointwise;
+     (un)packing on a CUDA tensor raise while Prover.front or the fixture
+     generator's evaluation sums (fixtures._evaluations) run, and every
+     prove, request and generator run must launch fr_slot_acc and
+     fr_pointwise;
   4. generate bench_fixtures/sqchain1048576.{zkey,wtns} on the card and
      prove it through the CLI entry point (cold), then once more on the
      loaded Prover (warm); the proof must pairing-verify, add /
@@ -66,7 +79,8 @@ failure exits non-zero:
      /status while the registry loads and when ready, two proves of the
      2^20 circuit and one of sqchain64 (each proof pairing-verified
      against its publics; add / scan_cols_packed / ntt_fused_pass
-     launched in the first, ntt_butterfly in the last), 404 for an
+     launched in the first, ntt_fused_pass and no ntt_butterfly in the
+     last), 404 for an
      unknown circuit, a request overwritten by the next one, and a body
      that is not JSON ending `failed`;
   8. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
@@ -78,15 +92,19 @@ failure exits non-zero:
   9. generate bench_fixtures/sqchain16777216.{zkey,wtns} on the card (the
      smaller fixtures are deleted first; the machine's memory and disk
      and this process's resident memory are printed), prove it through
-     the CLI entry point (cold), then on the loaded Prover (warm, with
-     the device peak of the front and of each MSM stage); both proofs
+     the CLI entry point (cold, with the device peak of the Prover's
+     set-up), then on the loaded Prover (warm, with the device peak of
+     the front and of each MSM stage); both proofs
      must pairing-verify, and every scan, add and fused NTT pass must
      have run at a shape phase 2 checked; the warm prove has a fixed
-     (r, s). Then the same zkey with every coefficient record split in
+     (r, s); fr_slot_acc on the Prover's own coefficient tables is held
+     against its plain version and timed beside phase 2's random-index
+     case. Then the same zkey with every coefficient record split in
      three distinct parts (v c1, v c2, v (1 - c1 - c2), made on the card
      by fr_pointwise) proves on a new Prover (K = 3 slots a row) with
      the same (r, s): its proof must equal the K = 1 proof byte for byte
-     and pairing-verify, and its front's peak may exceed the K = 1
+     and pairing-verify, fr_slot_acc on its tables is held and timed as
+     at K = 1, and its front's peak may exceed the K = 1
      front's by no more than the larger coefficient tables plus 1 GiB; a
      `prove_2^24` JSON line;
  10. a `kernels` JSON line, the card line, and the result line last.
@@ -98,10 +116,13 @@ Montgomery product of 8 x 8 32-bit limbs is counted as 264 IMADs (two
 64-product passes, a low and a high IMAD each, plus the 8 quotient
 digits); additions are not counted. dma_gather does no arithmetic: its
 bound is its bytes (rows read and written once, 4 bytes an index). The
-front kernels read each table once: fr_slot_acc a slot's 8-byte index
+front kernels read each table once: fr_slot_acc a slot's 4-byte index
 and 32-byte value (only the value of an empty slot), the witness once,
-the spilled records' order, index and value, and writes 32 bytes a row;
-one product a filled slot or spilled record.
+the spilled records' index and value, offsets and work list, and writes
+32 bytes a row; one product a filled slot or spilled record. Beside that
+bound it prints the traffic of one 32-byte sector a gathered witness row
+(sector_ms): random indices cannot beat it once the witness outgrows the
+50 MB L2.
 """
 
 import ctypes
@@ -280,6 +301,7 @@ def main() -> int:
     from rapidsnark_tpu_torch.io.zkey import read_zkey, zkey_to_ref
     from rapidsnark_tpu_torch.ops import field as FF, fused, msm as MSM
     from rapidsnark_tpu_torch.ops import front as FRONT
+    from rapidsnark_tpu_torch.ops import ntt as TN
     from rapidsnark_tpu_torch.ops.ntt import _passes
     from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO
     from rapidsnark_tpu_torch.ops.glv import GLV_BITS
@@ -319,6 +341,16 @@ def main() -> int:
         ln.strip() for ln in nv.stdout.splitlines() if ln.strip()))
     sass_report(os.path.dirname(D.nvcc()),
                 os.path.join(D.BUILD, "libcurve.so"))
+    front_lib = D.lib("front")
+    for what, which, K in (("k_slot_rows K=1", 0, 1),
+                           ("k_slot_rows K=3", 0, 3),
+                           ("k_spill_items", 1, 0), ("k_spill_rows", 2, 0)):
+        per_sm = ctypes.c_int(0)
+        D.check(front_lib.rs_front_occupancy(which, K,
+                                             ctypes.addressof(per_sm)),
+                "rs_front_occupancy")
+        log(f"  occupancy[{what}]: {per_sm.value} blocks of 256 threads "
+            f"an SM ({8 * per_sm.value} warps)")
 
     # ---------------------------------------------------------- phase 2 --
     rng = np.random.RandomState(2024)
@@ -665,6 +697,84 @@ def main() -> int:
                    n * MONT_IMADS)
     torch.cuda.empty_cache()
 
+    # the small transforms: the default dispatch below 2^12 (fused passes,
+    # one a direction up to 2^10) through ops/ntt's stage functions, held
+    # against the per-layer path's plain arithmetic on the card and timed
+    # beside the per-layer kernels (RSTPU_NTT_FUSE=0: one ntt_butterfly a
+    # layer, the coset multiply by fr_pointwise)
+    def per_layer_plain(x, tw, dif, pre_mul=None):
+        bsz, n = x.shape[0], x.shape[1]
+        if pre_mul is not None:
+            x = FRONT.fr_pointwise_plain("mul", x, pre_mul)
+        bits = range(n.bit_length() - 1)
+        for bit in (reversed(bits) if dif else bits):
+            h = 1 << bit
+            xv = x.reshape(bsz, n // (2 * h), 2, h, 8)
+            twl = fused.stage_twiddles(tw, n, bit).expand(xv[:, :, 0].shape)
+            lo_, hi_ = fused.ntt_butterfly_plain(xv[:, :, 0], xv[:, :, 1],
+                                                 twl, dif)
+            x = torch.stack([lo_, hi_], dim=2).reshape(bsz, n, 8)
+        return x
+
+    def both_ways(fn, reps):
+        """fn's ms per call under RSTPU_NTT_FUSE=0 and by default, timed
+        in turns (per layer, fused, fused, per layer)."""
+        t = {"per_layer": [], "fused": []}
+        for way in ("per_layer", "fused", "fused", "per_layer"):
+            if way == "per_layer":
+                os.environ["RSTPU_NTT_FUSE"] = "0"
+            try:
+                t[way].append(timed(fn, reps))
+            finally:
+                os.environ.pop("RSTPU_NTT_FUSE", None)
+        return {k: min(v) for k, v in t.items()}
+
+    small_ntt = {}
+    for batch, logn in ((3, 7), (1, 10), (1, 11)):
+        n = 1 << logn
+        plan = TN.NTTPlan(logn, dev).tensors()
+        x = fe(R_FR, (batch, n))
+        for dif in (True, False):
+            tw = plan["inv_tw" if dif else "fwd_tw"]
+            pm = None if dif else plan["coset_ninv_br"]
+            passes = _passes(logn)
+            for lo, k in passes:
+                ntt_checked.add((batch, n, lo, k, dif,
+                                 pm is not None and lo == 0))
+            if dif:
+                fn = lambda: TN._stages_dif(x, tw)              # noqa: E731
+            else:
+                fn = lambda: TN._stages_dit(x, tw, pre_mul=pm)  # noqa: E731
+            D.reset_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            if (D.counts["ntt_fused_pass"], D.counts["ntt_butterfly"]) != \
+                    (len(passes), 0):
+                raise RuntimeError(f"a 2^{logn}-point transform made "
+                                   f"{dict(D.counts)} launches")
+            want, plain_ms = timed_once(
+                lambda: per_layer_plain(x, tw, dif, pm))
+            e = err(got, want)
+            ways = both_ways(fn, 200)
+            elems = batch * n
+            key = f"{batch} x 2^{logn} whole {'dif' if dif else 'dit'}" + \
+                ("" if dif else " pre_mul")
+            record("ntt_fused_pass", key, e, ways["fused"], plain_ms,
+                   2 * elems * 32 + n // 2 * 32 + (0 if dif else n * 32),
+                   (elems // 2 * logn + (0 if dif else elems)) * MONT_IMADS,
+                   launches_per_direction=len(passes),
+                   per_layer_ms=ways["per_layer"])
+    # whole transforms through the port's functions, sqchain64's shapes
+    plan = TN.NTTPlan(7, dev).tensors()
+    x3, x1 = fe(R_FR, (3, 128)), fe(R_FR, (128,))
+    for name, fn in (("to_odd_coset 3 x 128",
+                      lambda: TN.to_odd_coset(x3, plan)),
+                     ("inverse ntt 128", lambda: TN.ntt(x1, plan, True))):
+        small_ntt[name] = both_ways(fn, 200)
+        log(f"  {name}: fused {small_ntt[name]['fused']:.4f} ms, per layer "
+            f"{small_ntt[name]['per_layer']:.4f} ms a call (200 calls)")
+    del x, x3, x1, plan, got, want
+
     # dma_gather: rows of R words by a permutation and by an index vector
     # that repeats rows, at the tool's default shape and at the 2^20
     # prove's GLV axis of G1 (64-byte) and G2 (128-byte) rows; exact words
@@ -702,11 +812,14 @@ def main() -> int:
     # the front kernels. fr_slot_acc at each prove's rows (2 x 2^logn,
     # K slots a row, witness 2^logn rows, random indices), at 2^20 also
     # with a spilled row of 100 and one of 2^15 + 700 terms among rows
-    # with a few; at 2^24 the plain version runs on the first 2^21 rows
-    # (it needs ~1.6 KB a slot). fr_pointwise at each prove's N: cvec =
-    # a*b and h; the per-stage coset multiply (3 x 2^20 by a 2^20 row),
-    # sqchain64's (3 x 128 by 128), and the 2^24 split's product of the
-    # ~2^25 coefficient values by one element and their difference
+    # with a few, and the fixture generator's shape (3 x 2^24 rows of one
+    # slot, one row of 2^24 spilled terms, the 2^24 Lagrange values
+    # gathered); at 2^24 the plain version runs on the first 2^21 rows
+    # (it needs ~1.6 KB a slot), a spilled row's records in parts.
+    # fr_pointwise at each prove's N: cvec = a*b and h; the per-stage
+    # coset multiply (3 x 2^20 by a 2^20 row), sqchain64's (3 x 128 by
+    # 128), and the 2^24 split's product of the ~2^25 coefficient values
+    # by one element and their difference
     plain_rows = 1 << 21       # fr_slot_acc rows; fr_pointwise 2^22 elements
     gen = torch.Generator(device=dev)
     gen.manual_seed(2025)
@@ -718,36 +831,83 @@ def main() -> int:
         w[..., 7] %= mod >> 224
         return FF.to_i32(w)
 
-    def slot_case(logn, K, spill_terms=None):
-        rows, nv = 2 << logn, 1 << logn
-        wit = fe_card(R_FR, (nv,))
-        cs = torch.randint(0, nv, (rows * K,), device=dev, generator=gen)
-        cv = fe_card(R_FR, (rows * K,))
-        spill, nleft, key = None, 0, f"2^{logn} K={K}"
-        if spill_terms:
-            tgt = np.concatenate([np.full(spill_terms, 5),
-                                  rng.randint(0, rows, size=3000)])
-            rng.shuffle(tgt)
-            nleft = tgt.size
-            order, off = FRONT.spill_csr(torch.from_numpy(tgt).to(dev), rows)
-            spill = (torch.randint(0, nv, (nleft,), device=dev,
-                                   generator=gen),
-                     fe_card(R_FR, (nleft,)), order, off)
-            key += f" spill row of {spill_terms} + 3000 records"
-        got = FRONT.fr_slot_acc(wit, cs, cv, K, spill)
-        sub = rows if rows <= plain_rows else plain_rows
-        want, plain_ms = timed_once(lambda: FRONT.fr_slot_acc_plain(
-            wit, cs[:sub * K], cv[:sub * K], K, spill))
+    def plain_slot_acc(wit, cs, cv, spill, sub):
+        """fr_slot_acc_plain over the first `sub` rows; the spilled
+        records of those rows in parts of plain_rows records (the sums
+        are taken mod r, so the parts add up to the whole)."""
+        cs, cv = cs[:, :sub], cv[:, :sub]
+        if spill is None:
+            return FRONT.fr_slot_acc_plain(wit, cs, cv)
+        off = spill.off[:sub + 1].long()
+        total, acc = int(off[-1]), None
+        for a in range(0, max(total, 1), plain_rows):
+            b = min(total, a + plain_rows)
+            part = FRONT.Spill(spill.s[a:b], spill.val[a:b],
+                               (off - a).clamp(0, b - a).to(torch.int32),
+                               None, None)
+            r = FRONT.fr_slot_acc_plain(wit, cs if a == 0 else cs[:0],
+                                        cv if a == 0 else cv[:0], part)
+            acc = r if acc is None else FF.pack(
+                FF.FR.add(FF.unpack(acc), FF.unpack(r)))
+        return acc
+
+    def slot_bytes(wit, cs, cv, spill):
+        """(bytes read once and written once, the same with one 32-byte
+        sector a gathered witness row, products) of a call."""
+        K, rows = cs.shape
+        filled = int((cv != 0).any(dim=-1).sum())
+        table = filled * 36 + (rows * K - filled) * 32 + rows * 32
+        nleft = 0
+        if spill is not None:
+            nleft = spill.s.shape[0]
+            table += nleft * 36 + (rows + 1) * 4 + \
+                (spill.items.numel() + spill.multi.numel()) * 4
+        return (table + wit.shape[0] * 32, table + (filled + nleft) * 32,
+                (filled + nleft) * MONT_IMADS)
+
+    def slot_timing(name, key, wit, cs, cv, spill, **extra):
+        """Hold fr_slot_acc against its plain version and time it; the
+        recorded case. Raises at once past phase 2."""
+        rows = cs.shape[1]
+        got = FRONT.fr_slot_acc(wit, cs, cv, spill)
+        sub = min(rows, plain_rows)
+        want, plain_ms = timed_once(
+            lambda: plain_slot_acc(wit, cs, cv, spill, sub))
         torch.cuda.synchronize()
         e = err(got[:sub], want)
         del want
-        ms = timed(lambda: FRONT.fr_slot_acc(wit, cs, cv, K, spill), 10)
-        filled = int((cv != 0).any(dim=1).sum())
-        nbytes = (filled * 40 + (rows * K - filled) * 32 + nv * 32
-                  + rows * 32 + (nleft * 44 + (rows + 1) * 4 if spill
-                                 else 0))
-        record("fr_slot_acc", key, e, ms, plain_ms, nbytes,
-               (filled + nleft) * MONT_IMADS, plain_rows=sub)
+        ms = timed(lambda: FRONT.fr_slot_acc(wit, cs, cv, spill), 10)
+        nbytes, sector, imads = slot_bytes(wit, cs, cv, spill)
+        record(name, key, e, ms, plain_ms, nbytes, imads, plain_rows=sub,
+               sector_ms=sector / HBM_BYTES_PER_S * 1e3, **extra)
+        return got, ms
+
+    def slot_case(logn, K, spill_terms=None, extra=3000, rows=None):
+        rows = rows or 2 << logn
+        nv = 1 << logn
+        wit = fe_card(R_FR, (nv,))
+        cs = torch.randint(0, nv, (K, rows), device=dev, generator=gen,
+                           dtype=torch.int32)
+        cv = fe_card(R_FR, (K, rows))
+        spill, key = None, f"2^{logn} K={K}"
+        if rows != 2 << logn:
+            key = f"generator {rows // nv} x 2^{logn} rows K={K}"
+        if spill_terms:
+            tgt = torch.cat([
+                torch.full((spill_terms,), 5, device=dev),
+                torch.randint(0, rows, (extra,), device=dev, generator=gen)])
+            tgt = tgt[torch.randperm(tgt.shape[0], device=dev,
+                                     generator=gen)]
+            spill, _ = FRONT.make_spill(
+                torch.randint(0, nv, tgt.shape, device=dev, generator=gen),
+                fe_card(R_FR, tgt.shape), tgt, rows)
+            key += f" spill row of {spill_terms} + {extra} records"
+        got, ms = slot_timing("fr_slot_acc", key, wit, cs, cv, spill)
+        if spill is not None:
+            # the same slots without the spilled records: the rest is theirs
+            results["fr_slot_acc"]["cases"][-1]["slots_only_ms"] = timed(
+                lambda: FRONT.fr_slot_acc(wit, cs, cv), 10)
+        del wit, cs, cv, spill, got
 
     for logn, K, terms in ((LOGN_BIG, 1, None), (LOGN_BIG, 3, None),
                            (LOGN_BIG, 1, 100), (LOGN_BIG, 1, (1 << 15) + 700),
@@ -755,6 +915,10 @@ def main() -> int:
                            (LOGN_MAX, 3, None)):
         slot_case(logn, K, terms)
         torch.cuda.empty_cache()
+    # the generator's shape: A, B, C wires of one slot each, sqchain's wire
+    # 0 of C spilled with a term in every constraint
+    slot_case(LOGN_MAX, 1, 1 << LOGN_MAX, extra=0, rows=3 << LOGN_MAX)
+    torch.cuda.empty_cache()
 
     def pointwise_case(op, ashape, bshape, tag):
         a, b = fe_card(R_FR, ashape), fe_card(R_FR, bshape)
@@ -894,9 +1058,10 @@ def main() -> int:
             if counts[k] == 0:
                 raise RuntimeError(f"{what} launched no {k}")
 
-    # From here on every prove must run the front kernels, and Prover.front
-    # must run no plain field arithmetic and no limb (un)packing on the
-    # card: those raise while it runs
+    # From here on every prove must run the front kernels, and neither
+    # Prover.front nor the fixture generator's evaluation sums may run
+    # plain field arithmetic or limb (un)packing on the card: those raise
+    # while either runs
     FRONT_KERNELS = ("fr_slot_acc", "fr_pointwise")
     guarded = [(FF.FieldOps, n) for n in (
         "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
@@ -906,7 +1071,7 @@ def main() -> int:
                           "unpack_limb_rows")]
     plain_fns = {(o, n): getattr(o, n) for o, n in guarded}
 
-    def refuse_on_card(name, fn):
+    def refuse_on_card(name, fn, where):
         def run(*args, **kw):
             flat = [t for a in args for t in (
                 a if isinstance(a, (list, tuple)) else (a,))]
@@ -914,22 +1079,37 @@ def main() -> int:
                 a if isinstance(a, (list, tuple)) else (a,))]
             if any(isinstance(t, torch.Tensor) and t.is_cuda for t in flat):
                 raise RuntimeError(f"plain {name} ran on a CUDA tensor "
-                                   "inside Prover.front")
+                                   f"inside {where}")
             return fn(*args, **kw)
         return run
 
-    real_front = Prover.front
-
-    def guarded_front(self, witness, tables):
-        for (o, n), fn in plain_fns.items():
-            setattr(o, n, refuse_on_card(n, fn))
-        try:
-            return real_front(self, witness, tables)
-        finally:
+    def guarded(real, where):
+        def run(*args, **kw):
             for (o, n), fn in plain_fns.items():
-                setattr(o, n, fn)
+                setattr(o, n, refuse_on_card(n, fn, where))
+            try:
+                return real(*args, **kw)
+            finally:
+                for (o, n), fn in plain_fns.items():
+                    setattr(o, n, fn)
+        return run
 
-    Prover.front = guarded_front
+    Prover.front = guarded(Prover.front, "Prover.front")
+    # the generator's evaluation sums, guarded, with their own device peak:
+    # (the peak before them, the peak while they run) of each generator
+    eval_peaks = []
+    real_evaluations = guarded(fixtures._evaluations, "fixtures._evaluations")
+
+    def evaluations_peak(*args, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = real_evaluations(*args, **kw)
+        torch.cuda.synchronize()
+        eval_peaks.append((before, torch.cuda.max_memory_allocated()))
+        return res
+
+    fixtures._evaluations = evaluations_peak
 
     log("phase3: prove tests/fixtures/sqchain64")
     fx = os.path.join(HERE, "tests", "fixtures")
@@ -938,10 +1118,32 @@ def main() -> int:
                                     os.path.join(fx, "sqchain64.wtns"),
                                     "sqchain64")
     small_counts = dict(D.counts)
-    prover.release()
     log("  launches:", json.dumps(small_counts))
-    need(small_counts, ("ntt_butterfly",) + FRONT_KERNELS,
+    need(small_counts, ("ntt_fused_pass",) + FRONT_KERNELS,
          "the sqchain64 prove")
+    if small_counts["ntt_butterfly"] or small_counts["ntt_fused_pass"] != 2:
+        raise RuntimeError("the sqchain64 prove's NTTs were not one fused "
+                           "pass a direction")
+    # its front both ways: one fused pass a direction, or RSTPU_NTT_FUSE=0
+    # (14 ntt_butterfly launches, their relayouts, a coset fr_pointwise)
+    wit64 = torch.from_numpy(np.ascontiguousarray(read_wtns(os.path.join(
+        fx, "sqchain64.wtns")).values).view(np.int32)).to(dev)
+    tables64 = prover.tables()
+    rows64 = prover.front(wit64, tables64)
+    os.environ["RSTPU_NTT_FUSE"] = "0"
+    try:
+        same = torch.equal(prover.front(wit64, tables64), rows64)
+    finally:
+        del os.environ["RSTPU_NTT_FUSE"]
+    if not same:
+        raise RuntimeError("sqchain64's per-layer front rows differ")
+    front64 = both_ways(lambda: prover.front(wit64, tables64), 50)
+    prover.release()
+    log(f"  sqchain64 front: CLI prove {prover.last_phases['front']:.4f} s; "
+        f"fused {front64['fused']:.4f} ms, per layer "
+        f"{front64['per_layer']:.4f} ms a call (50 calls, rows equal)")
+    small_ntt["sqchain64 front"] = {**front64,
+                                    "cli_s": prover.last_phases["front"]}
 
     # the multiplier with record 0 split into k random parts (a row that
     # spills past its K slots; past 2^15 terms the JAX package's pass is
@@ -1366,8 +1568,11 @@ def main() -> int:
     D.reset_counts()
     req_small, _ = proved("sqchain64", small_z, 3, "request sqchain64")
     server_small_counts = dict(D.counts)
-    need(server_small_counts, ("ntt_butterfly",) + FRONT_KERNELS,
+    need(server_small_counts, ("ntt_fused_pass",) + FRONT_KERNELS,
          "the sqchain64 request")
+    if server_small_counts["ntt_butterfly"]:
+        raise RuntimeError("the sqchain64 request launched ntt_butterfly")
+    small_ntt["sqchain64 request front_s"] = req_small["phases"]["front"]
     code, _ = http("POST", "/input/nosuch", b"{}")
     if code != 404:
         raise RuntimeError(f"POST /input/nosuch answered {code}, not 404")
@@ -1417,9 +1622,10 @@ def main() -> int:
     gen_seg_s = time.perf_counter() - t0
     gen_counts = dict(D.counts)
     log(f"  generated in {gen_seg_s:.1f}s parts {json.dumps(seg_parts)} "
+        f"evaluations' device peak {eval_peaks[-1][1]} B "
         f"launches {json.dumps(gen_counts)} "
         f"sha256 {json.dumps(sha256s(zpath, wpath))}")
-    need(gen_counts, ("add_mixed_packed", "add_mixed"),
+    need(gen_counts, ("add_mixed_packed", "add_mixed") + FRONT_KERNELS,
          f"the 2^{LOGN_SEG} fixture generator")
     D.reset_counts()
     seg_cold, seg_peak, prover = logged_prove(zpath, wpath, "seg_cold")
@@ -1469,14 +1675,28 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     max_gen_counts = dict(D.counts)
     host["generator_rss_peak"] = gen_rss.peak
-    gen_peak = torch.cuda.max_memory_allocated()
+    # the peak before the evaluation sums, and the peak from them on
+    gen_peak = max(eval_peaks[-1][0], torch.cuda.max_memory_allocated())
     log(f"  generated in {gen_s:.1f}s parts {json.dumps(parts)} "
-        f"device peak {gen_peak} B rss peak {gen_rss.peak} B"
+        f"device peak {gen_peak} B (evaluations {eval_peaks[-1][1]} B) "
+        f"rss peak {gen_rss.peak} B"
         f" launches {json.dumps(max_gen_counts)} sizes "
         f"{os.path.getsize(zpath)} / {os.path.getsize(wpath)} B")
-    need(max_gen_counts, ("add_mixed_packed", "add_mixed"),
+    need(max_gen_counts, ("add_mixed_packed", "add_mixed") + FRONT_KERNELS,
          f"the 2^{LOGN_MAX} fixture generator")
     torch.cuda.empty_cache()
+    # the device peak of each Prover's set-up (binning on the card)
+    setup_peaks = []
+    real_init = Prover.__init__
+
+    def peaked_init(self, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        real_init(self, *a, **kw)
+        torch.cuda.synchronize()
+        setup_peaks.append(torch.cuda.max_memory_allocated())
+
+    Prover.__init__ = peaked_init
     D.reset_counts()
     with RssPeak() as cli_rss:
         cold, cold_peak, prover = logged_prove(zpath, wpath, "max_cold")
@@ -1488,12 +1708,34 @@ def main() -> int:
     warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks,
                          rs=(r_fix, s_fix), proof_out=k1_proof)
     setup = dict(prover.setup_phases)
-    k1_coef_bytes = (prover.coef_s.numel() * 8 + prover.coef_val.numel() * 4)
+    k1_coef_bytes = (prover.coef_s.numel() * prover.coef_s.element_size()
+                     + prover.coef_val.numel() * 4)
+
+    def prover_slots(prover, tag):
+        """fr_slot_acc on the Prover's own coefficient tables and witness
+        (near-sequential wires), held and timed beside phase 2's
+        random-index case at the same K."""
+        wit = torch.from_numpy(np.ascontiguousarray(
+            read_wtns(wpath).values).view(np.int32)).to(dev)
+        K = prover.coef_slots
+        random_ms = next(c["ms"] for c in results["fr_slot_acc"]["cases"]
+                         if c["case"] == f"2^{LOGN_MAX} K={K}")
+        n_fail = len(failures)
+        _, ms = slot_timing("fr_slot_acc", f"2^{LOGN_MAX} K={K} {tag}", wit,
+                            prover.coef_s, prover.coef_val, prover.spill,
+                            random_index_ms=random_ms)
+        if len(failures) > n_fail:
+            raise RuntimeError(failures[-1])
+        return ms
+
+    slots_k1_ms = prover_slots(prover, "prover tables")
     k1 = (prover.coef_slots, prover.left_s is None)
     out = {
         "cold": cold, "warm": warm, "cli_wall_s": walls["max_cold"],
         "setup": setup, "generator_s": gen_s, "generator_parts": parts,
-        "peak_mem_bytes": {"generator": gen_peak, "cli_cold": cold_peak,
+        "peak_mem_bytes": {"generator": gen_peak,
+                           "generator_evaluations": eval_peaks[-1][1],
+                           "setup": setup_peaks[-1], "cli_cold": cold_peak,
                            **{f"warm_{k}": v for k, v in peaks.items()}},
         "card_mem_bytes": torch.cuda.get_device_properties(0).total_memory,
         "launches": max_counts, "generator_launches": max_gen_counts,
@@ -1536,6 +1778,7 @@ def main() -> int:
     split_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     prover = Prover(zk3, device="cuda")
+    Prover.__init__ = real_init
     zk.close()
     del zk, zk3
     if (prover.coef_slots, prover.left_s is None) != (3, True) or \
@@ -1544,7 +1787,8 @@ def main() -> int:
                            f"{prover.coef_slots} (spilled "
                            f"{prover.left_s is not None}); the original to "
                            f"{k1}")
-    k3_coef_bytes = (prover.coef_s.numel() * 8 + prover.coef_val.numel() * 4)
+    k3_coef_bytes = (prover.coef_s.numel() * prover.coef_s.element_size()
+                     + prover.coef_val.numel() * 4)
     k3_first, k3_proofs = {}, []
     first, _ = warm_prove(prover, zpath, wpath, "max_k3_first",
                           peaks=k3_first, rs=(r_fix, s_fix),
@@ -1554,6 +1798,7 @@ def main() -> int:
                             peaks=k3_peaks, rs=(r_fix, s_fix),
                             proof_out=k3_proofs)
     k3_counts = dict(D.counts)
+    slots_k3_ms = prover_slots(prover, "prover tables")
     pa, pb = k1_proof[0], k3_proofs[-1]
     if (pa.a, pa.b, pa.c) != (pb.a, pb.b, pb.c):
         raise RuntimeError("the K = 3 proof differs from the K = 1 proof")
@@ -1563,17 +1808,22 @@ def main() -> int:
                            f"B, over the K = 1 front's {peaks['front']} B "
                            f"+ the larger tables + 1 GiB = {allowed} B")
     log(f"  K = 3 (coef_slots {prover.coef_slots}): split {split_s:.1f}s, "
-        f"set-up {json.dumps(prover.setup_phases)}, coefficient tables "
+        f"set-up {json.dumps(prover.setup_phases)} device peak "
+        f"{setup_peaks[-1]} B (K = 1: {setup_peaks[0]} B), coefficient "
+        f"tables "
         f"{k3_coef_bytes} B (K = 1: {k1_coef_bytes} B); front peak "
         f"{k3_peaks['front']} B (K = 1: {peaks['front']} B, allowed "
         f"{allowed} B); the proof equals the K = 1 proof, verified True")
     out["k3"] = {"coef_slots": prover.coef_slots, "split_s": split_s,
                  "split_launches": split_counts,
-                 "setup": dict(prover.setup_phases), "first": first,
+                 "setup": dict(prover.setup_phases),
+                 "setup_peak_bytes": setup_peaks[-1], "first": first,
                  "warm": k3_warm, "first_peaks": k3_first,
                  "warm_peaks": k3_peaks, "coef_table_bytes": k3_coef_bytes,
                  "k1_coef_table_bytes": k1_coef_bytes, "launches": k3_counts,
                  "front_peak_allowed": allowed}
+    out["fr_slot_acc_prover_tables_ms"] = {"K=1": slots_k1_ms,
+                                           "K=3": slots_k3_ms}
     prover.release()
     del prover
     torch.cuda.empty_cache()
@@ -1592,7 +1842,7 @@ def main() -> int:
         "ntt_fused_pass": ("csrc/ntt.cu", "rapidsnark_tpu/ops/fused.py:371",
                            big_counts, f"2^{LOGN_BIG} bits 0+10 dit"),
         "ntt_butterfly": ("csrc/ntt.cu", "rapidsnark_tpu/ops/fused.py:233",
-                          small_counts, "n=192 dit"),
+                          stage_counts, f"n={3 << (LOGN_BIG - 1)} dit"),
         "ntt_tail": ("csrc/ntt.cu", "rapidsnark_tpu/ops/fused.py:458",
                      stage_counts, "dif"),
         "add_mixed_packed": ("csrc/curve.cu",
@@ -1619,6 +1869,7 @@ def main() -> int:
             f"2^{LOGN_MAX} K=3 warm": out["k3"]["launches"],
             **{f"multiplier {k} parts": v["launches"]
                for k, v in dense.items()}}
+    log(json.dumps({"small_ntt_ms": small_ntt, "card": card}))
     kernels = []
     for name, (src, rep, counts, pick) in meta.items():
         ent = results[name]

@@ -5,9 +5,10 @@ package):
     RSTPU_WINDOW_GROUP   windows batched per MSM group (default 5)
     RSTPU_MSM_SEGMENT    points per MSM bucket slice (default: 0 up to
                          2^21 points, 2^20 above, 2^19 from 2^24)
-    RSTPU_NTT_FUSE       0: per-stage NTT layers (ntt_tail + one
-                         ntt_butterfly per upper layer); anything else:
-                         fused passes (default: fused from 2^12 points)
+    RSTPU_NTT_FUSE       0: per-stage NTT layers (ntt_tail from 2^12
+                         points + one ntt_butterfly per other layer);
+                         anything else: fused passes (default: fused at
+                         every size, one pass a direction up to 2^10)
     RSTPU_NTT_SEQ        1/0: transform a, b, c one at a time / as one
                          stack (default: one at a time from 2^23)
     RSTPU_GLV            0: MSMs without the GLV split (ops/glv.enabled;
@@ -49,11 +50,14 @@ def msm_segment(n: int) -> int:
 
 def ntt_fuse(n: int) -> bool:
     """Whether an n-point transform runs as fused passes; the variable,
-    when set, decides at every size."""
+    when set, decides at every size. The default differs from the JAX
+    package's (per stage below 2^12 points): the port runs a transform of
+    up to 2^10 points as one pass a direction, where the per-stage path
+    makes a launch a layer. A 1-point transform has no layer to run."""
     v = os.environ.get("RSTPU_NTT_FUSE")
     if v is not None:
         return v != "0"
-    return n >= (1 << 12)
+    return n > 1
 
 
 def ntt_sequential(power: int) -> bool:

@@ -2,8 +2,10 @@
 
 The JAX Prover's `tables()` hold limb-major uint32 arrays: packed point
 tables with leaves (8, rows, n), NTT tables (16, n) or packed (8, n),
-coefficient slots (m,) / (m, 8). The port holds element-major int32
-words. Both directions go through numpy; nothing here imports JAX.
+coefficient slots row-major (rows * K,) / (rows * K, 8), spilled records
+in record order. The port holds element-major int32 words, its slots
+slot-major (K, rows) and its spilled records sorted by row. Both
+directions go through numpy; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .ops.front import spill_csr
+from .ops.front import SPILL_TABLES, make_spill
 
 
 def _w(a) -> np.ndarray:
@@ -36,35 +38,39 @@ def tables_from_jax(tables: dict, device="cpu") -> Dict:
     """JAX `Prover.tables()` (as numpy or arrays) -> the port's tables.
 
     pts_g1 (x, y) leaves (8, 4, n) -> (4, n, 2, 8); pts_g2 ((x0, x1),
-    (y0, y1)) leaves (8, 1, n) -> (1, n, 4, 8); NTT rows -> (n, 8). With
-    spilled coefficient records, their target rows (left_seg, through
-    acc2_seg when two-level) also give the port's sorted list
-    (left_order, left_off: ops/front.spill_csr)."""
+    (y0, y1)) leaves (8, 1, n) -> (1, n, 4, 8); NTT rows -> (n, 8);
+    coefficient slots -> (K, 2N) / (K, 2N, 8). With spilled coefficient
+    records, their target rows (left_seg, through acc2_seg when
+    two-level) give the port's row-sorted records and work list
+    (ops/front.make_spill) and left_order."""
     x, y = tables["pts_g1"]
     g1 = np.stack([_words_rows(x), _words_rows(y)], axis=-2)
     (x0, x1), (y0, y1) = tables["pts_g2"]
     g2 = np.stack([_words_rows(a) for a in (x0, x1, y0, y1)], axis=-2)
+    rows = 2 * np.asarray(tables["ntt"]["coset_ninv_br"]).shape[-1]
+    cs = np.asarray(tables["coef_s"]).astype(np.int32).reshape(rows, -1)
+    cv = _w(tables["coef_val"]).reshape(rows, cs.shape[1], 8)
     out = {
         "pts_g1": _t(g1, device),
         "pts_g2": _t(g2, device),
-        "coef_s": torch.from_numpy(np.asarray(tables["coef_s"])
-                                   .astype(np.int64)).to(device),
-        "coef_val": _t(tables["coef_val"], device),
+        "coef_s": torch.from_numpy(np.ascontiguousarray(cs.T)).to(device),
+        "coef_val": _t(cv.transpose(1, 0, 2), device),
         "ntt": {k: _t(_words_rows(v), device)
                 for k, v in tables["ntt"].items()
                 if k in ("fwd_tw", "inv_tw", "coset_ninv_br")},
     }
-    for k in ("left_s", "left_seg", "acc2_seg"):
+    for k in ("left_seg", "acc2_seg"):
         if k in tables:
             out[k] = torch.from_numpy(np.asarray(tables[k])
                                       .astype(np.int64)).to(device)
     if "left_val" in tables:
-        out["left_val"] = _t(tables["left_val"], device)
-        rows = out["left_seg"]
+        seg = out["left_seg"]
         if "acc2_seg" in out:
-            rows = out["acc2_seg"][rows]
-        out["left_order"], out["left_off"] = spill_csr(
-            rows, 2 * out["ntt"]["coset_ninv_br"].shape[0])
+            seg = out["acc2_seg"][seg]
+        spill, out["left_order"] = make_spill(
+            torch.from_numpy(np.asarray(tables["left_s"]).astype(np.int64))
+            .to(device), _t(tables["left_val"], device), seg, rows)
+        out.update(zip(SPILL_TABLES, spill))
     return out
 
 
@@ -74,21 +80,30 @@ def tables_to_numpy(tables: dict) -> Dict:
     def rows(t):
         return np.moveaxis(t.cpu().numpy().view(np.uint32), -1, 0)
 
+    def unsorted(t):
+        """A row-sorted spill table back in record order."""
+        out = torch.empty_like(t)
+        out[tables["left_order"].long()] = t
+        return out.cpu().numpy()
+
     g1 = tables["pts_g1"]
     g2 = tables["pts_g2"]
     out = {
         "pts_g1": (rows(g1[..., 0, :]), rows(g1[..., 1, :])),
         "pts_g2": ((rows(g2[..., 0, :]), rows(g2[..., 1, :])),
                    (rows(g2[..., 2, :]), rows(g2[..., 3, :]))),
-        "coef_s": tables["coef_s"].cpu().numpy().astype(np.int32),
-        "coef_val": tables["coef_val"].cpu().numpy().view(np.uint32),
+        "coef_s": tables["coef_s"].T.reshape(-1).cpu().numpy()
+        .astype(np.int32),
+        "coef_val": tables["coef_val"].transpose(0, 1).reshape(-1, 8)
+        .cpu().numpy().view(np.uint32),
         "ntt": {k: rows(v) for k, v in tables["ntt"].items()},
     }
-    for k in ("left_s", "left_seg", "acc2_seg"):
+    for k in ("left_seg", "acc2_seg"):
         if k in tables:
             out[k] = tables[k].cpu().numpy().astype(np.int32)
     if "left_val" in tables:
-        out["left_val"] = tables["left_val"].cpu().numpy().view(np.uint32)
+        out["left_s"] = unsorted(tables["left_s"]).astype(np.int32)
+        out["left_val"] = unsorted(tables["left_val"]).view(np.uint32)
     return out
 
 

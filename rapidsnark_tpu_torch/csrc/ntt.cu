@@ -14,9 +14,8 @@
 // is bound by bytes, and a pass that keeps 3 or more layers on chip is
 // bound by the multiply-adds. The designs:
 //   * ntt_butterfly: one (lo, hi) pair per thread, DIF or DIT; bytes
-//     bound. It carries every layer below 2^12 points, where launch
-//     latency dominates anyway, and the layers from bit 7 up of the
-//     per-stage configuration.
+//     bound. It carries the per-stage configuration (RSTPU_NTT_FUSE=0):
+//     the layers from bit 7 up, and every layer below 2^12 points.
 //   * ntt_tail: the layers on bits 0-6, whose partners all lie inside
 //     a contiguous 128-element tile. A block holds 8 such tiles (32 KB)
 //     and the 127 twiddles of the seven layers (4 KB) in shared memory
@@ -30,7 +29,10 @@
 //     the optional elementwise pre-multiply, runs all those layers in
 //     shared memory with one barrier per layer, and writes the tile
 //     back: a 2^20 transform is 3 passes instead of 20, which moves the
-//     bound from bytes to the multiply-adds.
+//     bound from bytes to the multiply-adds. Up to 2^10 points one pass
+//     is the whole transform of a polynomial (w = 0, one block each), so
+//     a small domain costs one launch a direction, not one a layer plus
+//     its relayout: there launch latency is the cost, not the card.
 // Elements are packed Montgomery words, 8 x u32 each, element-major;
 // twiddles are the (N/2, 8) table w^0 .. w^(N/2-1) of the direction.
 #include "field.cuh"

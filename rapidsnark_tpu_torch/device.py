@@ -32,7 +32,7 @@ KERNELS = ("add", "scan_cols_packed", "ntt_fused_pass", "ntt_butterfly",
            "ntt_tail", "add_mixed_packed", "add_mixed", "dma_gather",
            "fr_slot_acc", "fr_pointwise")
 # launches of each kernel since the last reset_counts(); a wrapper adds
-# one where it launches its kernel and nowhere else
+# one for each launch it makes and nowhere else
 counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,7 +49,9 @@ _ARGTYPES = {
     "rs_add_mixed_packed": [_I, _VP, _VP, _VP, _LL, _VP],
     "rs_add_mixed": [_I, _VP, _VP, _VP, _LL, _VP],
     "rs_dma_gather": [_VP, _VP, _VP, _LL, _LL, _I, _I, _I, _VP],
-    "rs_fr_slot_acc": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _LL, _VP],
+    "rs_fr_slot_acc": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _LL, _VP, _LL,
+                       _VP, _VP, _LL, _VP],
+    "rs_front_occupancy": [_I, _I, _VP],
     "rs_fr_pointwise": [_I, _VP, _VP, _VP, _VP, _LL, _LL, _VP],
 }
 
@@ -70,8 +72,8 @@ def reset_counts() -> None:
         counts[k] = 0
 
 
-def count(name: str) -> None:
-    counts[name] += 1
+def count(name: str, launches: int = 1) -> None:
+    counts[name] += launches
 
 
 def nvcc() -> str:

@@ -8,8 +8,9 @@ points are unique), fast enough for 2^24 constraints:
   * every per-element scalar on the device in Fr Montgomery form: the
     domain's powers by ops/ntt.powers_mont, batch inversions by prefix
     and suffix products with one host pow per chunk, the a/b/c
-    evaluations at tau by a gather, one product and an index_add per
-    coefficient chunk, then reduce_wide (as Prover._acc accumulates);
+    evaluations at tau by the front's kernel ops/front.fr_slot_acc (the
+    entries binned by target, the Lagrange values gathered, as
+    Prover._acc accumulates);
   * point tables by a 4-bit fixed-base ladder: 64 strict mixed adds per
     scalar against a host-built affine table of (d << 4w) * G. The G1
     tables read it as packed words (ops/fused.add_mixed_packed); the G2
@@ -41,6 +42,7 @@ import torch
 from . import device as D
 from .io.zkey import COEF_DTYPE
 from .ops import field as FF
+from .ops import front as FRONT
 from .ops import fused
 from .ops.curve import FQ2, G1P, G2P, pack_point
 from .ops.field import FQ, FR
@@ -56,7 +58,7 @@ from .utils.points import g1_affine_to_mont_limbs, g2_affine_to_mont_limbs
 _WBITS = 4
 _NWIN = 64
 _CH = 1 << 18       # scalars per device chunk (ladders, batch inversions)
-_EV_CH = 1 << 20    # coefficient entries per evaluation chunk
+_EV_CH = 1 << 20    # wires per chunk of the wire scalars
 
 
 # ---------------------------------------------------------------------------
@@ -332,33 +334,28 @@ def _domain_scalars(domain: int, tau: int, dinv: int, dev):
 
 def _evaluations(coo: CooR1CS, lag: torch.Tensor, n_ab: int, dev):
     """sum_k v * L_k(tau) per (matrix, wire) -> (3 * n_vars, 8) packed
-    Montgomery words (A, B, C wires in turn), by a gather of lag, one Fr
-    product and an index_add per chunk of entries, then reduce_wide; with
-    the Montgomery words of the first n_ab entries' values (the zkey's
-    coefficient records) as a (n_ab, 8) uint32 array."""
+    Montgomery words (A, B, C wires in turn), by ops/front.fr_slot_acc:
+    the entries binned by target m * n_vars + s (one slot a target, the
+    rest spilled in row order; sqchain's C puts wire 0 in every row), the
+    Lagrange table gathered by k, each value put in Montgomery form by
+    fr_pointwise (a product by R^2); with the Montgomery words of the
+    first n_ab entries' values (the zkey's coefficient records) as a
+    (n_ab, 8) uint32 array."""
     nv = coo.n_vars
-    nnz = coo.m.shape[0]
-    if nnz >= 1 << 31:
-        raise ValueError("fast_setup: too many coefficients for one "
-                         "accumulator (>= 2^31)")
-    acc = torch.zeros((16, 3 * nv), dtype=torch.int64, device=dev)
-    coef = np.empty((n_ab, 8), np.uint32)
-    for lo in range(0, nnz, _EV_CH):
-        hi = min(nnz, lo + _EV_CH)
-        k = torch.from_numpy(coo.k[lo:hi]).to(dev)
-        tgt = torch.from_numpy(coo.m[lo:hi] * nv + coo.s[lo:hi]).to(dev)
-        vm = FR.to_mont(FF.unpack(_t32(coo.value[lo:hi], dev)))
-        if lo < n_ab:
-            coef[lo:min(hi, n_ab)] = (FF.pack(vm[:, :n_ab - lo]).cpu()
-                                      .numpy().view(np.uint32))
-        # column sums < 2^16 * nnz < 2^47: reduce_wide's 18 columns hold it
-        acc.index_add_(1, tgt, FR.mul(vm, FF.unpack(lag[k])))
-    out = torch.empty((3 * nv, 8), dtype=torch.int32, device=dev)
-    for lo in range(0, 3 * nv, _EV_CH):
-        cols = acc[:, lo:lo + _EV_CH]
-        cols = torch.cat([cols, torch.zeros_like(cols[:2])], dim=0)
-        out[lo:lo + _EV_CH] = FF.pack(FR.reduce_wide(cols))
-    return out, coef
+    if coo.m.shape[0] >= 1 << 31:
+        raise ValueError("fast_setup: too many coefficients (>= 2^31)")
+    r2 = _t32(ints_to_words([(1 << 512) % R_FR])[0], dev)
+    vm = FRONT.fr_pointwise("mul", _t32(coo.value, dev), r2)
+    coef = vm[:n_ab].cpu().numpy().view(np.uint32)
+    k = torch.from_numpy(coo.k.astype(np.int32)).to(dev)
+    tgt = torch.from_numpy(coo.m * nv + coo.s).to(dev)
+    cs, cv, left, _ = FRONT.slot_tables(k, vm, tgt, 3 * nv, 1)
+    spill = None
+    if left.numel():
+        spill, _ = FRONT.make_spill(k[left], vm[left], tgt[left], 3 * nv)
+    # the kernel reads only the tables: free the entries first
+    del vm, k, tgt, left
+    return FRONT.fr_slot_acc(lag, cs, cv, spill), coef
 
 
 def _wire_scalars(at: torch.Tensor, nv: int, n_public: int, toxic, dev):
@@ -405,9 +402,11 @@ def fast_setup(coo: CooR1CS, seed: str = "rapidsnark-tpu-test",
     dinv = pow(delta, -1, R_FR)
     with _part("scalars", parts, dev):
         lag, h_scal = _domain_scalars(domain, tau, dinv, dev)
+    with _part("evaluations", parts, dev):
         n_ab = int(np.searchsorted(coo.m, 2))
         at, coef_words = _evaluations(coo, lag, n_ab, dev)
         del lag
+    with _part("wire_scalars", parts, dev):
         a_w, b_w, k_w = _wire_scalars(at, nv, npub, toxic, dev)
         del at
         coefs = np.empty(n_ab, COEF_DTYPE)

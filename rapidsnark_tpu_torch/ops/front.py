@@ -10,7 +10,9 @@ tensor it launches the hand-written kernel (csrc/front.cu) on the current
 stream and counts the launch, or raises. There is no fallback.
 
   fr_slot_acc   row r = sum of mont(witness[s], v) over the row's K slots
-                and its spilled records (standard form, canonical)
+                and its spilled records (canonical); a call makes up to
+                three launches, each counted (the slots, the spilled
+                records' chunks, the rows of several chunks)
   fr_pointwise  a*b (b may be a row broadcast over a), a - b, and
                 h = from_mont(a*b - c)
 
@@ -22,7 +24,7 @@ package's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,10 +34,23 @@ from .field import FR
 
 POINTWISE_OPS = {"mul": 0, "sub": 1, "h": 2}
 
-# the spilled records of fr_slot_acc: (left_s (m,) int64 witness indices,
-# left_val (m, 8) values, left_order (m,) int32 sorting them by row,
-# left_off (rows + 1,) int32 each row's span of left_order)
-Spill = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+SPILL_CHUNK = 1024      # spilled records a warp sums as one work item
+
+
+class Spill(NamedTuple):
+    """The coefficient records past their row's K slots, sorted by row
+    (stable): int32 witness indices `s` (m,) and values `val` (m, 8),
+    int32 CSR offsets `off` (rows + 1,) giving row r the records
+    off[r] .. off[r+1], and spill_work's `items` and `multi`."""
+    s: torch.Tensor
+    val: torch.Tensor
+    off: torch.Tensor
+    items: torch.Tensor
+    multi: torch.Tensor
+
+
+# the Spill fields as Prover / convert table names
+SPILL_TABLES = ("left_s", "left_val", "left_off", "left_items", "left_multi")
 
 
 def spill_csr(rows: torch.Tensor, nrows: int):
@@ -51,19 +66,86 @@ def spill_csr(rows: torch.Tensor, nrows: int):
     return order.to(torch.int32), off.to(torch.int32)
 
 
+def spill_work(off: torch.Tensor, chunk: int = SPILL_CHUNK):
+    """The kernel's work list for CSR offsets `off` (rows + 1,): `items`
+    (n, 3) int32 (row, begin, end), each row's records cut into spans of
+    `chunk` and a last shorter one, rows ascending and empty rows left
+    out; `multi` (m, 3) int32 (row, first item, end item) for the rows
+    of two or more items, whose partial sums a second launch adds."""
+    off = off.long()
+    nch = (off[1:] - off[:-1] + chunk - 1) // chunk
+    first = torch.cumsum(nch, 0) - nch
+    row = torch.repeat_interleave(
+        torch.arange(nch.shape[0], device=off.device), nch)
+    beg = off[row] + (torch.arange(row.shape[0], device=off.device)
+                      - first[row]) * chunk
+    end = torch.minimum(beg + chunk, off[row + 1])
+    many = torch.nonzero(nch > 1).squeeze(1)
+    items = torch.stack([row, beg, end], dim=1).to(torch.int32)
+    multi = torch.stack([many, first[many], first[many] + nch[many]],
+                        dim=1).to(torch.int32)
+    return items.contiguous(), multi.contiguous()
+
+
+def make_spill(s: torch.Tensor, val: torch.Tensor, rows: torch.Tensor,
+               nrows: int, chunk: int = SPILL_CHUNK):
+    """Spilled records (witness indices s, values val (m, 8), target rows
+    rows, all on one device, any order) -> (Spill, order): the records
+    sorted by row and their work list; int32 `order` (spill_csr's) maps
+    a sorted position to the record's position in the input."""
+    order, off = spill_csr(rows, nrows)
+    items, multi = spill_work(off, chunk)
+    o = order.long()
+    return Spill(s[o].to(torch.int32).contiguous(), val[o].contiguous(), off,
+                 items, multi), order
+
+
+def slot_tables(s: torch.Tensor, val: torch.Tensor, rows: torch.Tensor,
+                nrows: int, K: int):
+    """Bin records (witness index s, int32 or int64; value val (m, 8);
+    int64 target row rows; all on one device) into K slots a row, in
+    their order within a row -> (coef_s (K, nrows) int32, coef_val (K,
+    nrows, 8) slot-major, 0 in an empty slot; left (n,) int64 the records
+    past K slots, ascending; their rank in the row minus K). Each
+    full-width temporary is freed once used (at 2^26 records one int64
+    array is 0.5 GB)."""
+    m = rows.shape[0]
+    dev = rows.device
+    order = torch.argsort(rows, stable=True)
+    cnt = torch.bincount(rows, minlength=nrows)
+    start = torch.cumsum(cnt, 0) - cnt
+    del cnt
+    pos = torch.arange(m, device=dev)
+    pos -= start[rows[order]]
+    del start
+    rank = torch.empty_like(rows)
+    rank[order] = pos
+    del order, pos
+    main = rank < K
+    rec = torch.nonzero(main).squeeze(1)
+    dst = rank[rec] * nrows + rows[rec]
+    coef_s = torch.zeros((K, nrows), dtype=torch.int32, device=dev)
+    coef_val = torch.zeros((K, nrows, 8), dtype=val.dtype, device=dev)
+    coef_s.view(-1)[dst] = s[rec].to(torch.int32)
+    coef_val.view(-1, 8)[dst] = val[rec]
+    del rec, dst
+    left = torch.nonzero(~main).squeeze(1)
+    return coef_s, coef_val, left, rank[left] - K
+
+
 # ------------------------------------------------------------ fr_slot_acc --
 
-def fr_slot_acc_plain(witness, coef_s, coef_val, K: int,
+def fr_slot_acc_plain(witness, coef_s, coef_val,
                       spill: Optional[Spill] = None):
-    rows = coef_s.shape[0] // K
-    prod = FR.mul(FF.unpack(witness[coef_s]), FF.unpack(coef_val))
-    acc = prod.reshape(16, rows, K).sum(dim=-1)
+    rows = coef_s.shape[1]
+    prod = FR.mul(FF.unpack(witness[coef_s.long()]), FF.unpack(coef_val))
+    acc = prod.sum(dim=1)                                  # (16, rows)
     if spill is not None:
-        ls, lv, order, off = spill
-        order = order.long()
-        lprod = FR.mul(FF.unpack(witness[ls[order]]), FF.unpack(lv[order]))
+        lprod = FR.mul(FF.unpack(witness[spill.s.long()]),
+                       FF.unpack(spill.val))
         row = torch.repeat_interleave(
-            torch.arange(rows, device=acc.device), (off[1:] - off[:-1]).long())
+            torch.arange(rows, device=acc.device),
+            (spill.off[1:] - spill.off[:-1]).long())
         acc.index_add_(1, row, lprod)
     # int64 columns of 16-bit limbs hold any sum below 2^34 canonical
     # terms a row; two more columns give reduce_wide the carries
@@ -72,46 +154,54 @@ def fr_slot_acc_plain(witness, coef_s, coef_val, K: int,
 
 
 def fr_slot_acc(witness: torch.Tensor, coef_s: torch.Tensor,
-                coef_val: torch.Tensor, K: int,
+                coef_val: torch.Tensor,
                 spill: Optional[Spill] = None) -> torch.Tensor:
-    """The coefficient accumulation: (rows, 8) canonical standard-form
-    words, row r = sum of mont(witness[s], v) over the slots r*K ..
-    r*K+K-1 of (coef_s, coef_val) and over the spilled records of row r.
+    """The coefficient accumulation: (rows, 8) canonical words, row r =
+    sum of mont(witness[s], v) over the slots (k, r) of (coef_s,
+    coef_val) and over the spilled records of row r. With the witness in
+    standard form (the Prover's) that is the standard form of the sum of
+    witness * coefficient; with a table of Montgomery words gathered
+    (the fixture generator's Lagrange values) it is Montgomery form.
 
-    witness: (nVars, 8) int32 standard-form words; coef_s: (rows*K,)
-    int64; coef_val: (rows*K, 8) Montgomery words, 0 in an empty slot;
-    spill: see `Spill` (offsets from spill_csr), or None."""
-    if K < 1 or coef_s.dim() != 1 or coef_s.shape[0] % K:
-        raise ValueError(f"fr_slot_acc: {tuple(coef_s.shape)} slots are not "
-                         f"rows of K = {K}")
-    if coef_val.shape != (coef_s.shape[0], 8):
-        raise ValueError(f"fr_slot_acc: coef_val {tuple(coef_val.shape)} "
-                         f"does not match coef_s {tuple(coef_s.shape)}")
-    rows = coef_s.shape[0] // K
-    if spill is not None and tuple(spill[3].shape) != (rows + 1,):
-        raise ValueError(f"fr_slot_acc: offsets {tuple(spill[3].shape)} "
+    witness: (nVars, 8) int32 words; coef_s: (K, rows) int32 indices
+    (K may be 0); coef_val: (K, rows, 8) Montgomery words, 0 in an empty
+    slot; spill: a Spill over the same rows (make_spill), or None."""
+    if coef_s.dim() != 2 or coef_val.shape != tuple(coef_s.shape) + (8,):
+        raise ValueError(f"fr_slot_acc: coef_s {tuple(coef_s.shape)} and "
+                         f"coef_val {tuple(coef_val.shape)} are not (K, "
+                         f"rows) and (K, rows, 8)")
+    rows = coef_s.shape[1]
+    if spill is not None and (
+            tuple(spill.off.shape) != (rows + 1,)
+            or spill.val.shape != tuple(spill.s.shape) + (8,)
+            or spill.items.shape[1:] != (3,)
+            or spill.multi.shape[1:] != (3,)):
+        raise ValueError(f"fr_slot_acc: spill of {tuple(spill.s.shape)} "
+                         f"records with offsets {tuple(spill.off.shape)} "
                          f"for {rows} rows")
     if witness.device.type == "cpu":
-        return fr_slot_acc_plain(witness, coef_s, coef_val, K, spill)
+        return fr_slot_acc_plain(witness, coef_s, coef_val, spill)
     D.require(witness, "fr_slot_acc.witness", tail=(8,))
-    D.require(coef_s, "fr_slot_acc.coef_s", dtype=torch.int64)
+    D.require(coef_s, "fr_slot_acc.coef_s")
     D.require(coef_val, "fr_slot_acc.coef_val", tail=(8,))
-    ptrs = [None] * 4
-    if spill is not None:
-        ls, lv, order, off = spill
-        D.require(ls, "fr_slot_acc.left_s", dtype=torch.int64)
-        D.require(lv, "fr_slot_acc.left_val", tail=(8,))
-        D.require(order, "fr_slot_acc.left_order")
-        D.require(off, "fr_slot_acc.left_off")
-        if lv.shape[0] != ls.shape[0] or order.shape != ls.shape:
-            raise ValueError("fr_slot_acc: spilled tables differ in length")
-        ptrs = [t.data_ptr() for t in spill]
     out = torch.empty((rows, 8), dtype=torch.int32, device=witness.device)
+    sp, nitems, nmulti, part = [None] * 5, 0, 0, None
+    if spill is not None:
+        for t, nm in zip(spill, SPILL_TABLES):
+            D.require(t, f"fr_slot_acc.{nm}")
+        nitems, nmulti = spill.items.shape[0], spill.multi.shape[0]
+        sp = [t.data_ptr() for t in spill]
+        if nmulti:
+            part = torch.empty((nitems, 8), dtype=torch.int32,
+                               device=witness.device)
+    K = coef_s.shape[0]
     rc = D.lib("front").rs_fr_slot_acc(
-        witness.data_ptr(), coef_s.data_ptr(), coef_val.data_ptr(), K, *ptrs,
-        out.data_ptr(), rows, D.stream(witness))
+        witness.data_ptr(), coef_s.data_ptr(), coef_val.data_ptr(), K,
+        sp[0], sp[1], sp[2], sp[3], nitems, sp[4], nmulti,
+        None if part is None else part.data_ptr(), out.data_ptr(), rows,
+        D.stream(witness))
     D.check(rc, "fr_slot_acc")
-    D.count("fr_slot_acc")
+    D.count("fr_slot_acc", 1 + (nitems > 0) + (nmulti > 0))
     return out
 
 

@@ -5,19 +5,21 @@ same convention (fft(a)[i] = sum_k a[k] w^(ik), w = fr_w(log2 N), the
 snarkjs/ffjavascript root chain; twiddles in Montgomery form). Vectors
 are packed element-major: (*batch, N, 8) int32.
 
-Dispatch follows the JAX package: at N >= 2^12 a transform runs as
-fused passes (ops/fused.ntt_fused_pass; the bottom pass carries the 10
-lowest layers, every further pass 5 more), below that one
-ops/fused.ntt_butterfly layer at a time. With RSTPU_NTT_FUSE=0
-(config.ntt_fuse) a transform of 2^12 points or more runs per stage
-instead: ops/fused.ntt_tail for the layers on bits 0-6 and one
-ntt_butterfly layer for every bit above. The odd-coset map is the
-gather-free DIF -> (1/N * eta^k at bit-reversed positions) -> DIT form,
-with the multiply folded into the DIT's first fused pass (per stage, and
-below 2^12 points, one ops/front.fr_pointwise; it also scales the
-inverse DFT by 1/N). NTTPlan builds its tables on the device as products
-of two short host lists of powers (powers_mont), not by a host loop per
-element.
+Dispatch: a transform runs as fused passes (ops/fused.ntt_fused_pass;
+the bottom pass carries the 10 lowest layers, every further pass 5
+more), so up to 2^10 points it is one launch a direction, one block a
+polynomial holding every element in shared memory. The JAX package runs
+its transforms below 2^12 points one ntt_butterfly layer at a time,
+each layer a launch and its relayout, which on the card is launch
+latency and glue. With RSTPU_NTT_FUSE=0 (config.ntt_fuse) a transform
+runs per stage at every size instead: ops/fused.ntt_tail for the layers
+on bits 0-6 from 2^12 points, one ops/fused.ntt_butterfly layer for
+every other bit. The odd-coset map is the gather-free DIF -> (1/N *
+eta^k at bit-reversed positions) -> DIT form, with the multiply folded
+into the DIT's first fused pass (per stage, one ops/front.fr_pointwise;
+it also scales the inverse DFT by 1/N). NTTPlan builds its tables on
+the device as products of two short host lists of powers (powers_mont),
+not by a host loop per element.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Groth16 prover for one device on torch tensors.
 
 Counterpart of `rapidsnark_tpu/prover.py` on its single-device path:
-  coefficient accumulation (groth16.cpp:52-96)  host-binned slots (rows
-                                                denser than K spill to a
-                                                CSR list), summed by
+  coefficient accumulation (groth16.cpp:52-96)  slots binned at set-up
+                                                (rows denser than K spill
+                                                to a row-sorted list),
+                                                summed by
                                                 ops/front.fr_slot_acc
   coset FFTs (groth16.cpp:99-155)               ops/ntt.to_odd_coset
   h = a*b - c (groth16.cpp:157-166)             ops/front.fr_pointwise
@@ -104,7 +105,7 @@ def _ref_g2(limbs):
 
 class Prover:
     """One circuit's proving context: device-resident zkey tables, NTT
-    tables and the host-binned coefficient slots."""
+    tables and the binned coefficient slots."""
 
     def __init__(self, zkey: ZKey, window_bits: Optional[int] = None,
                  window_group: Optional[int] = None,
@@ -171,59 +172,53 @@ class Prover:
 
     def _bin_coefficients(self, zkey: ZKey) -> None:
         """Bin the coefficient records by target row (a|b, constraint)
-        into K slots per row on the host; the records past a row's K
-        slots spill to a list sorted by row (left_order, left_off; see
-        ops/front.fr_slot_acc). The spilled records' segment tables keep
-        the JAX package's layout (left_seg, two-level acc2_seg past 2^15
-        terms a row) for ops/convert; the front reads only the sorted
-        list."""
+        into K slots per row (slot-major, ops/front.slot_tables), on the
+        device; the records past a row's K slots are kept sorted by row
+        with their work list (ops/front.make_spill). For ops/convert the
+        spilled records' permutation (left_order) and their segment
+        tables in the JAX package's layout (left_seg, two-level acc2_seg
+        past 2^15 terms a row) are kept too; the front reads neither."""
         dev = self.device
         n = self.domain
-        seg = zkey.coef_m.astype(np.int64) * n + zkey.coef_c.astype(np.int64)
+        if self.n_vars >= 1 << 31:
+            raise ValueError("more than 2^31 wires: witness indices are "
+                             "int32")
+        seg = (torch.from_numpy(zkey.coef_m.astype(np.int64)) * n
+               + torch.from_numpy(zkey.coef_c.astype(np.int64))).to(dev)
         ncoefs = seg.shape[0]
-        coef_s = zkey.coef_s.astype(np.int64)
-        coef_val = np.asarray(zkey.coef_val)
-        counts = np.bincount(seg, minlength=2 * n)
-        order = np.argsort(seg, kind="stable")
-        starts = np.zeros(2 * n, np.int64)
-        starts[1:] = np.cumsum(counts)[:-1]
-        rank = np.empty(ncoefs, np.int64)
-        rank[order] = np.arange(ncoefs) - starts[seg[order]]
+        coef_s = torch.from_numpy(zkey.coef_s.astype(np.int32)).to(dev)
+        coef_val = _i32(zkey.coef_val).to(dev)
+        counts = torch.bincount(seg, minlength=2 * n)
         K = 1
-        while np.count_nonzero(rank >= K) > 0.05 * ncoefs and K < 16:
+        while K < 16 and \
+                int((counts - K).clamp(min=0).sum()) > 0.05 * ncoefs:
             K += 1
         self.coef_slots = K
-        main = rank < K
-        slot = seg[main] * K + rank[main]
-        s_pad = np.zeros(2 * n * K, np.int64)
-        v_pad = np.zeros((2 * n * K, 8), np.uint32)
-        s_pad[slot] = coef_s[main]
-        v_pad[slot] = coef_val[main]
-        self.coef_s = torch.from_numpy(s_pad).to(dev)
-        self.coef_val = _i32(v_pad).to(dev)
-        left = np.nonzero(~main)[0]
+        self.coef_s, self.coef_val, left, lrank = FRONT.slot_tables(
+            coef_s, coef_val, seg, 2 * n, K)
         cap = 1 << 15
-        self.left_s = self.left_val = self.left_seg = self.acc2_seg = None
-        self.left_order = self.left_off = None
-        if left.size:
+        self.spill = self.left_order = self.left_seg = self.acc2_seg = None
+        if left.numel():
             lseg = seg[left]
-            lrank = rank[left] - K
-            self.left_s = torch.from_numpy(coef_s[left]).to(dev)
-            self.left_val = _i32(coef_val[left]).to(dev)
-            self.left_order, self.left_off = FRONT.spill_csr(
-                torch.from_numpy(lseg).to(dev), 2 * n)
+            self.spill, self.left_order = FRONT.make_spill(
+                coef_s[left], coef_val[left], lseg, 2 * n)
             if int(counts.max()) - K < cap:
-                self.left_seg = torch.from_numpy(lseg).to(dev)
+                self.left_seg = lseg
             else:
                 nsub = (int(counts.max()) - K - 1) // cap + 1
                 if nsub >= cap:
                     raise ValueError("coefficient section too dense "
                                      "(> 2^30 terms on one row)")
-                key = lseg * nsub + (lrank >> 15)
-                uniq, inv = np.unique(key, return_inverse=True)
-                self.left_seg = torch.from_numpy(inv.astype(np.int64)).to(dev)
-                self.acc2_seg = torch.from_numpy(
-                    (uniq // nsub).astype(np.int64)).to(dev)
+                uniq, inv = torch.unique(lseg * nsub + (lrank >> 15),
+                                         return_inverse=True)
+                self.left_seg = inv
+                self.acc2_seg = uniq // nsub
+
+    @property
+    def left_s(self):
+        """The spilled records' witness indices, sorted by row (None when
+        every record has a slot)."""
+        return None if self.spill is None else self.spill.s
 
     def tables(self) -> dict:
         if self.released:
@@ -232,11 +227,12 @@ class Prover:
         out = {"pts_g1": self.pts_g1, "pts_g2": self.pts_g2,
                "coef_s": self.coef_s, "coef_val": self.coef_val,
                "ntt": self.ntt_arrays}
-        for name in ("left_s", "left_val", "left_seg", "acc2_seg",
-                     "left_order", "left_off"):
-            v = getattr(self, name)
-            if v is not None:
-                out[name] = v
+        if self.spill is not None:
+            out.update(zip(FRONT.SPILL_TABLES, self.spill))
+            out["left_order"] = self.left_order
+            out["left_seg"] = self.left_seg
+        if self.acc2_seg is not None:
+            out["acc2_seg"] = self.acc2_seg
         return out
 
     # -- front: witness -> MSM scalar rows -----------------------------------
@@ -256,10 +252,9 @@ class Prover:
         n = self.domain
         spill = None
         if "left_s" in tables:
-            spill = tuple(tables[k] for k in ("left_s", "left_val",
-                                              "left_order", "left_off"))
+            spill = FRONT.Spill(*(tables[k] for k in FRONT.SPILL_TABLES))
         ab = FRONT.fr_slot_acc(witness, tables["coef_s"], tables["coef_val"],
-                               self.coef_slots, spill).reshape(2, n, 8)
+                               spill).reshape(2, n, 8)
         return ab, FRONT.fr_pointwise("mul", ab[0], ab[1])
 
     def _cosets(self, ab, cvec, tables):
@@ -315,8 +310,7 @@ class Prover:
         """Drop every device table; the instance cannot prove afterwards."""
         self.pts_g1 = self.pts_g2 = None
         self.coef_s = self.coef_val = None
-        self.left_s = self.left_val = self.left_seg = self.acc2_seg = None
-        self.left_order = self.left_off = None
+        self.spill = self.left_order = self.left_seg = self.acc2_seg = None
         self.ntt_arrays = {}
         self.released = True
 

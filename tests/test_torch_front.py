@@ -2,7 +2,9 @@
 against the JAX package's front arithmetic on the same numpy inputs:
 `fr_slot_acc` against FR.mul, the slot sum, the spilled records'
 segment_sum and reduce_wide as rapidsnark_tpu/prover.py `_acc` runs them;
-`fr_pointwise` against FR.mul, FR.sub and FR.from_mont.
+`fr_pointwise` against FR.mul, FR.sub and FR.from_mont. Beside them the
+table builders the kernel reads (the slots, the spilled records' CSR and
+work list) against numpy loops.
 
 Tolerance: exact words (canonical residues are unique).
 """
@@ -58,11 +60,17 @@ def _jax_acc(wit, cs, cv, K, rows, spill=None):
     return _jw(JF.FR.reduce_wide(JF.unpack(acc)))
 
 
-@pytest.mark.parametrize("spilled", [False, True])
+# spilled records: none; 100 on row 3 and a few on rows 0 and 39; two
+# chunks and a remainder on row 3 (a row longer than a chunk) and a few
+SPILLS = {"none": None, "short": 100, "long": 2 * FRONT.SPILL_CHUNK + 300}
+
+
+@pytest.mark.parametrize("spilled", sorted(SPILLS))
 @pytest.mark.parametrize("K", [1, 2, 3])
 def test_slot_acc_plain_matches_jax(K, spilled):
-    """40 rows of K slots (one in five empty); spilled: 100 records on
-    row 3, a few on rows 0 and 39, in no order."""
+    """40 rows of K slots (one in five empty), given to the port
+    slot-major; spilled records in no order, given to the port sorted by
+    row (make_spill)."""
     nvars, rows = 50, 40
     rs = np.random.RandomState(K)
     wit = _words((nvars,), 10 + K)
@@ -71,17 +79,22 @@ def test_slot_acc_plain_matches_jax(K, spilled):
     cs[::5] = 0
     cv[::5] = 0
     spill, tspill = None, None
-    if spilled:
-        lrow = np.concatenate([np.full(100, 3), [0, 39, 39]])
+    if SPILLS[spilled]:
+        lrow = np.concatenate([np.full(SPILLS[spilled], 3), [0, 39, 39]])
         rs.shuffle(lrow)
         ls = rs.randint(0, nvars, size=lrow.size)
         lv = _words((lrow.size,), 30 + K)
         spill = (ls, lv, lrow)
-        order, off = FRONT.spill_csr(_t(lrow), rows)
-        tspill = (_t(ls), _t(lv).view(torch.int32), order, off)
+        tspill, _ = FRONT.make_spill(_t(ls), _t(lv).view(torch.int32),
+                                     _t(lrow), rows)
+        assert tspill.items.shape[0] == 2 + -(-SPILLS[spilled]
+                                              // FRONT.SPILL_CHUNK)
     want = _jax_acc(wit, cs, cv, K, rows, spill)
-    got = FRONT.fr_slot_acc(_t(wit).view(torch.int32), _t(cs),
-                            _t(cv).view(torch.int32), K, tspill)
+    got = FRONT.fr_slot_acc(
+        _t(wit).view(torch.int32),
+        _t(cs.reshape(rows, K).T.astype(np.int32)),
+        _t(cv.reshape(rows, K, 8).transpose(1, 0, 2)).view(torch.int32),
+        tspill)
     assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
@@ -91,6 +104,49 @@ def test_spill_csr_sorts_by_row_stably():
     assert order.dtype == off.dtype == torch.int32
     assert order.tolist() == [3, 1, 4, 0, 2, 5]
     assert off.tolist() == [0, 1, 3, 3, 3, 6, 6]
+
+
+def _work_numpy(counts, chunk):
+    """spill_work's lists by a loop per row."""
+    items, multi, beg = [], [], 0
+    for r, c in enumerate(counts):
+        first = len(items)
+        for lo in range(0, c, chunk):
+            items.append((r, beg + lo, beg + min(lo + chunk, c)))
+        if len(items) - first > 1:
+            multi.append((r, first, len(items)))
+        beg += c
+    return items, multi
+
+
+@pytest.mark.parametrize("counts", [
+    [0, 0, 0],                      # nothing spilled
+    [0, 4, 0, 1],                   # a row of exactly one chunk
+    [3, 0, 11, 2, 0],               # several chunks and a remainder
+    [2, 0, 0, 8],                   # the last row, two whole chunks
+    [5, 4, 12, 0, 1, 9, 0, 0, 4]])
+def test_spill_work_matches_numpy(counts, chunk=4):
+    off = torch.zeros(len(counts) + 1, dtype=torch.int32)
+    off[1:] = torch.cumsum(torch.tensor(counts), 0)
+    items, multi = FRONT.spill_work(off, chunk)
+    want_items, want_multi = _work_numpy(counts, chunk)
+    assert items.dtype == multi.dtype == torch.int32
+    assert items.reshape(-1, 3).tolist() == [list(t) for t in want_items]
+    assert multi.reshape(-1, 3).tolist() == [list(t) for t in want_multi]
+
+
+def test_slot_tables_bin_in_order():
+    """Records of rows 2, 0, 2, 2, 1, 2 in two slots a row: each row's
+    first two in its slots (slot-major), the rest past them in record
+    order with their rank minus K."""
+    rows = torch.tensor([2, 0, 2, 2, 1, 2])
+    s = torch.tensor([10, 11, 12, 13, 14, 15])
+    val = (torch.arange(6, dtype=torch.int32) + 1)[:, None].repeat(1, 8)
+    cs, cv, left, lrank = FRONT.slot_tables(s, val, rows, 4, 2)
+    assert cs.dtype == torch.int32
+    assert cs.tolist() == [[11, 14, 10, 0], [0, 0, 12, 0]]
+    assert cv[..., 0].tolist() == [[2, 5, 1, 0], [0, 0, 3, 0]]
+    assert left.tolist() == [3, 5] and lrank.tolist() == [0, 1]
 
 
 @pytest.mark.parametrize("op,ashape,bshape", [
@@ -127,8 +183,14 @@ def test_front_wrappers_refuse_bad_arguments():
         with pytest.raises(ValueError, match="fr_pointwise"):
             FRONT.fr_pointwise(*args)
     wit = torch.zeros((5, 8), dtype=torch.int32)
-    cs = torch.zeros(6, dtype=torch.int64)
+    cs = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="fr_slot_acc"):
-        FRONT.fr_slot_acc(wit, cs, torch.zeros((6, 8), dtype=torch.int32), 4)
+        FRONT.fr_slot_acc(wit, cs, torch.zeros((3, 2, 8), dtype=torch.int32))
     with pytest.raises(ValueError, match="fr_slot_acc"):
-        FRONT.fr_slot_acc(wit, cs, torch.zeros((5, 8), dtype=torch.int32), 3)
+        FRONT.fr_slot_acc(wit, cs.reshape(-1),
+                          torch.zeros((6, 8), dtype=torch.int32))
+    spill, _ = FRONT.make_spill(torch.tensor([1]), wit[:1],
+                                torch.tensor([0]), 4)
+    with pytest.raises(ValueError, match="fr_slot_acc"):
+        FRONT.fr_slot_acc(wit, cs, torch.zeros((2, 3, 8), dtype=torch.int32),
+                          spill)

@@ -315,19 +315,20 @@ def test_fast_setup_on_card_writes_the_cpu_bytes(tmp_path):
 
 
 def _slot_case(rows, K, nvars, seed, dev):
-    """A witness (nvars, 8) and rows*K slots with random indices and
-    values, one slot in five empty (value 0, index 0)."""
+    """A witness (nvars, 8) and K slot-major slots a row with random
+    indices and values, one slot in five empty (value 0, index 0)."""
     rs = np.random.RandomState(seed)
     wit = _fe(R_FR, (nvars,), seed + 1, dev)
-    cs = torch.from_numpy(rs.randint(0, nvars, size=rows * K)).to(dev)
-    cv = _fe(R_FR, (rows * K,), seed + 2, dev)
-    cs[::5] = 0
-    cv[::5] = 0
+    cs = torch.from_numpy(rs.randint(0, nvars, size=(K, rows))
+                          .astype(np.int32)).to(dev)
+    cv = _fe(R_FR, (K, rows), seed + 2, dev)
+    cs.view(-1)[::5] = 0
+    cv.view(-1, 8)[::5] = 0
     return wit, cs, cv
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("K", [0, 1, 2, 3, 5])
 @pytest.mark.parametrize("rows", [1, 1000, 4097])
 def test_slot_acc_kernel_matches_plain(K, rows):
     dev = _dev()
@@ -335,20 +336,22 @@ def test_slot_acc_kernel_matches_plain(K, rows):
     from rapidsnark_tpu_torch.ops import front as FRONT
     wit, cs, cv = _slot_case(rows, K, 700, 20 + K, dev)
     D.reset_counts()
-    got = FRONT.fr_slot_acc(wit, cs, cv, K)
-    want = FRONT.fr_slot_acc_plain(wit, cs, cv, K)
+    got = FRONT.fr_slot_acc(wit, cs, cv)
+    want = FRONT.fr_slot_acc_plain(wit, cs, cv)
     torch.cuda.synchronize()
     assert D.counts["fr_slot_acc"] == 1
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("terms", [100, (1 << 15) + 700])
+@pytest.mark.parametrize("terms", [100, 1024, 3 * 1024 + 5, (1 << 15) + 700])
 def test_slot_acc_kernel_spill_rows_match_plain(terms):
-    """Rows with spilled records: one of `terms` terms, two of a few, in
-    warps of their own and in one warp together; the spilled records
-    come unsorted, as the binning leaves them."""
+    """Rows with spilled records: one of `terms` terms (one chunk,
+    exactly one, several and a remainder), a few of one or three, the
+    last row among them; the records come unsorted, as binning leaves
+    them."""
     dev = _dev()
+    from rapidsnark_tpu_torch import device as D
     from rapidsnark_tpu_torch.ops import front as FRONT
     rows, K = 1000, 2
     wit, cs, cv = _slot_case(rows, K, 700, 30, dev)
@@ -357,12 +360,39 @@ def test_slot_acc_kernel_spill_rows_match_plain(terms):
     rs.shuffle(tgt)
     ls = torch.from_numpy(rs.randint(0, 700, size=tgt.size)).to(dev)
     lv = _fe(R_FR, (tgt.size,), 32, dev)
-    order, off = FRONT.spill_csr(torch.from_numpy(tgt).to(dev), rows)
-    spill = (ls, lv, order, off)
-    got = FRONT.fr_slot_acc(wit, cs, cv, K, spill)
-    want = FRONT.fr_slot_acc_plain(wit, cs, cv, K, spill)
+    spill, _ = FRONT.make_spill(ls, lv, torch.from_numpy(tgt).to(dev), rows)
+    D.reset_counts()
+    got = FRONT.fr_slot_acc(wit, cs, cv, spill)
+    want = FRONT.fr_slot_acc_plain(wit, cs, cv, spill)
     torch.cuda.synchronize()
+    # the slots, the chunks, and the rows of several chunks: each launch
+    # counted
+    assert D.counts["fr_slot_acc"] == 2 + (terms > FRONT.SPILL_CHUNK)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("power", [1, 2, 7, 10, 11])
+def test_small_transforms_on_card_match_per_layer_plain(power, monkeypatch):
+    """The default dispatch below 2^12 (fused passes: one a direction up
+    to 2^10) against the per-layer path's plain versions on the CPU, a
+    stack of 3 with the coset pre-multiply."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import ntt as TN
+    monkeypatch.delenv("RSTPU_NTT_FUSE", raising=False)
+    n = 1 << power
+    tables = TN.NTTPlan(power, "cpu").tensors()
+    x = _fe(R_FR, (3, n), 50 + power, "cpu")
+    D.reset_counts()
+    got = TN.to_odd_coset(x.to(dev), {k: v.to(dev)
+                                      for k, v in tables.items()})
+    torch.cuda.synchronize()
+    assert D.counts["ntt_fused_pass"] == 2 * (1 + (power > 10))
+    assert D.counts["ntt_butterfly"] == 0
+    monkeypatch.setenv("RSTPU_NTT_FUSE", "0")
+    want = TN.to_odd_coset(x, tables)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -43,8 +43,8 @@ def test_plan_tables_match_jax(power):
 
 @pytest.mark.parametrize("power,batch", [(6, (3,)), (12, ())])
 def test_to_odd_coset_matches_jax(power, batch):
-    """2^6 runs the per-stage ntt_butterfly path, 2^12 the fused passes
-    (JAX on the CPU runs its per-stage path: the transforms must agree)."""
+    """2^6 runs one fused pass a direction, 2^12 two (JAX on the CPU runs
+    its per-stage path: the transforms must agree)."""
     jp, tp = JN.NTTPlan(power), TN.NTTPlan(power, "cpu")
     ja = {k: jnp.asarray(v) for k, v in jp.arrays().items()}
     x = _poly(power, batch, seed=power)
@@ -153,14 +153,59 @@ def test_to_odd_coset_per_stage(power, monkeypatch):
 
 
 def test_ntt_fuse_knob_matches_jax(monkeypatch):
+    """Unset, the port fuses at every size above one point (the JAX
+    package from 2^12, on its TPU); set, the two read the variable
+    alike."""
     from rapidsnark_tpu_torch import config
     monkeypatch.delenv("RSTPU_NTT_FUSE", raising=False)
-    assert [config.ntt_fuse(1 << p) for p in (6, 11, 12, 20)] == \
-        [False, False, True, True]
+    assert [config.ntt_fuse(1 << p) for p in (0, 1, 6, 11, 12, 20)] == \
+        [False, True, True, True, True, True]
     for v in ("0", "1", ""):
         monkeypatch.setenv("RSTPU_NTT_FUSE", v)
         for p in (6, 12, 20):
             assert config.ntt_fuse(1 << p) == JN._fuse_enabled(1 << p)
+
+
+SMALL = [(p, None) for p in range(1, 12)] + [(p, "0") for p in (1, 7, 11)]
+
+
+@pytest.mark.parametrize("op", ["to_odd_coset", "inverse_ntt"])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("power,knob", SMALL)
+def test_small_transforms_match_jax(power, knob, batch, op, monkeypatch):
+    """Below 2^12 points: by default one fused pass a direction up to
+    2^10 (two at 2^11) and no per-layer butterfly; with RSTPU_NTT_FUSE=0
+    one butterfly a layer. Either way the JAX package's per-stage path's
+    words (JAX on the CPU runs per stage below 2^12 whatever the knob)."""
+    if knob is None:
+        monkeypatch.delenv("RSTPU_NTT_FUSE", raising=False)
+    else:
+        monkeypatch.setenv("RSTPU_NTT_FUSE", knob)
+    jp, tp = JN.NTTPlan(power), TN.NTTPlan(power, "cpu")
+    ja = {k: jnp.asarray(v) for k, v in jp.arrays().items()}
+    x = _poly(power, (batch,), seed=power + 20 * batch)
+    if op == "to_odd_coset":
+        want = jax.jit(lambda v: JN.to_odd_coset(v, ja, jp.eta))(
+            jnp.asarray(x))
+    else:
+        want = jax.jit(lambda v: JN.ntt(v, ja, inverse=True))(jnp.asarray(x))
+    calls = {"ntt_fused_pass": 0, "ntt_butterfly": 0}
+    for name in calls:
+        real = getattr(TFU, name)
+        monkeypatch.setattr(TFU, name, lambda *a, _r=real, _n=name, **k: (
+            calls.__setitem__(_n, calls[_n] + 1), _r(*a, **k))[1])
+    if op == "to_odd_coset":
+        got = TN.to_odd_coset(_packed(x), tp.tensors())
+    else:
+        got = TN.ntt(_packed(x), tp.tensors(), inverse=True)
+    assert np.array_equal(port_words(got), words_of(want))
+    directions = 2 if op == "to_odd_coset" else 1
+    if knob is None:
+        assert calls == {"ntt_fused_pass": directions * (1 + (power > 10)),
+                         "ntt_butterfly": 0}
+    else:
+        assert calls == {"ntt_fused_pass": 0,
+                         "ntt_butterfly": directions * power}
 
 
 def words_of_packed_rows(w: np.ndarray) -> np.ndarray:
