@@ -7,12 +7,12 @@ Needs one CUDA card (sm_90a: H100) and nvcc; exits non-zero without
 them, or when run away from the repository. Phases, in order; any
 failure exits non-zero:
   1. the card's name and power limit, torch / CUDA versions, and the
-     build of the four kernel libraries (all nvcc processes started
+     build of the five kernel libraries (all nvcc processes started
      together) with each kernel's registers, stack frame and spills,
      `nvcc --version`, and per curve kernel the SASS counts of IMAD*,
      IADD3* and all instructions per Montgomery product (cuobjdump;
      skipped with a line where it is missing);
-  2. each of the ten kernels against its plain PyTorch version on the
+  2. each of the twelve kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed with CUDA events beside the plain version and the
@@ -38,7 +38,14 @@ failure exits non-zero:
      dispatch's fused passes, DIF and DIT with the coset pre-multiply)
      against the per-layer plain version and timed beside the per-layer
      kernels (RSTPU_NTT_FUSE=0), and a (3, 128) to_odd_coset and a
-     128-point inverse ntt through the port's functions both ways. `add`
+     128-point inverse ntt through the port's functions both ways; the
+     MSM's preparation kernels at each prove's shapes (glv_digits on the
+     2^20 prove's whole GLV axis and on a 2^22 and a 2^24 slice, every
+     window, an edge table of scalars in front and alone at c = 4, 8,
+     11, 13, 16 with and without GLV; fq_scale's phi on the 2^20 table
+     and on a slice, a window group's bucket negation, the G2 totals'
+     map back off the iso-twist, the G2 table's rescale at 2^20, 2^22,
+     2^24). `add`
      is timed
      alone (its C entry point back to back: a narrow launch takes less
      time than the wrapper's Python) and through its wrapper; each scan,
@@ -72,7 +79,9 @@ failure exits non-zero:
      Prover.front gives the fused configuration's rows word for word;
   6. the gather tools in-process at 2^21 rows of 64 bytes (the 2^20
      prove's GLV axis): both must report correct and dma_gather must
-     have launched;
+     have launched; then the MSM tools (bench_msm_phases, msm_ablate,
+     sweep_msm) at the 2^24 and the 2^22 slice shapes, each stage's ms
+     printed;
   7. the proof server (server.__main__.main on a thread of this
      process) with the 2^20 fixture and sqchain64 as its registry and
      two witness-generator executables written into ./build: over HTTP,
@@ -82,7 +91,9 @@ failure exits non-zero:
      launched in the first, ntt_fused_pass and no ntt_butterfly in the
      last), 404 for an
      unknown circuit, a request overwritten by the next one, and a body
-     that is not JSON ending `failed`;
+     that is not JSON ending `failed`; plain field arithmetic or
+     GLV.decompose on a CUDA tensor while the server loads and answers
+     fails the phase (counted by a guard this script installs);
   8. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
      through the CLI entry point with the segmented MSM (cold), then on
@@ -97,7 +108,12 @@ failure exits non-zero:
      the front and of each MSM stage); both proofs
      must pairing-verify, and every scan, add and fused NTT pass must
      have run at a shape phase 2 checked; the warm prove has a fixed
-     (r, s); fr_slot_acc on the Prover's own coefficient tables is held
+     (r, s), and one more runs under torch.profiler (device kernels
+     launched, the device-busy share of the prove and of the MSMs'
+     window); no plain field arithmetic or GLV.decompose may run on a
+     CUDA tensor in the CLI prove (set-up included), the warm prove and
+     the K = 3 Prover's set-up and proves; fr_slot_acc on the Prover's
+     own coefficient tables is held
      against its plain version and timed beside phase 2's random-index
      case. Then the same zkey with every coefficient record split in
      three distinct parts (v c1, v c2, v (1 - c1 - c2), made on the card
@@ -125,6 +141,7 @@ bound it prints the traffic of one 32-byte sector a gathered witness row
 50 MB L2.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -301,6 +318,7 @@ def main() -> int:
     from rapidsnark_tpu_torch.io.zkey import read_zkey, zkey_to_ref
     from rapidsnark_tpu_torch.ops import field as FF, fused, msm as MSM
     from rapidsnark_tpu_torch.ops import front as FRONT
+    from rapidsnark_tpu_torch.ops import glv as GLVM
     from rapidsnark_tpu_torch.ops import ntt as TN
     from rapidsnark_tpu_torch.ops.ntt import _passes
     from rapidsnark_tpu_torch.ops.curve import G1P, G2P, G2P_ISO
@@ -312,7 +330,9 @@ def main() -> int:
     from rapidsnark_tpu_torch.utils.limbs import words_to_ints
     from rapidsnark_tpu_torch.server import http as server_http
     from rapidsnark_tpu_torch.server.__main__ import main as server_main
-    from rapidsnark_tpu_torch.tools import bench_dma_gather, bench_gather
+    from rapidsnark_tpu_torch.tools import (bench_dma_gather, bench_gather,
+                                            bench_msm_phases, msm_ablate,
+                                            sweep_msm)
     from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
 
     dev = torch.device("cuda")
@@ -954,7 +974,132 @@ def main() -> int:
     pointwise_case("mul", (2 << LOGN_MAX,), (), f"2^{LOGN_MAX + 1} by one")
     pointwise_case("sub", (2 << LOGN_MAX,), (2 << LOGN_MAX,),
                    f"2^{LOGN_MAX + 1}")
+    # NTTPlan's powers_mont at 2^23 / 2^24 entries: blocks of 256 rows of
+    # 4,096 by the row of the first 4,096 powers
+    pointwise_case("mul", (256, 4096), (4096,),
+                   "256 x 4096 by a row (powers_mont)")
     torch.cuda.empty_cache()
+
+    # the MSM's preparation kernels. glv_digits at each prove's shapes:
+    # the 2^20 prove's whole axis (both GLV halves of the 4 G1 rows and
+    # the G2 row of 2^20 scalars), a 2^22 and a 2^24 slice (one half of
+    # segment scalars a row, a strided view of the rows, as the segmented
+    # MSM cuts them); every window at the prove's c, the edge table of
+    # both groups' constants (ops/glv.edge_scalars) in front; the edge
+    # table alone at c = 4, 8, 11, 13, 16 for both halves and without GLV.
+    # fq_scale at its callers' shapes: phi on the 2^20 table and on a
+    # 2^22 and 2^24 slice, a window group's bucket negation (a strided
+    # view) at c = 13, G = 5, the window totals' map back off the
+    # iso-twist, and the G2 table's rescale at 2^20, 2^22 and 2^24.
+    # Bounds: 240 IMADs a GLV half (two 8 x 5-word products, two
+    # truncated 5 x 6-word ones, a low and a high IMAD a word product),
+    # 264 a Montgomery product, 3 an Fq2 product.
+    edge = GLVM.edge_scalars(GLVM.G1_PARAMS) + \
+        GLVM.edge_scalars(GLVM.G2_PARAMS)
+    edge_w = torch.from_numpy(np.array(
+        [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in edge],
+        dtype=np.uint32).view(np.int32)).to(dev)
+    glv_imads = 240
+    c_big = MSM.best_window_bits(1 << LOGN_BIG)   # the 2^20 prove's c
+    prep = {}               # (kernel, prove, curve) -> the case's key
+
+    def digits_case(tag, sc, params, half, cc, timed_case=True):
+        bits = GLV_BITS if params is not None else 256
+        nw = -(-bits // cc)
+        got = MSM.glv_digits(sc, cc, 0, nw, params, half)
+        want, plain_ms = timed_once(
+            lambda: MSM.glv_digits_plain(sc, cc, 0, nw, params, half))
+        torch.cuda.synchronize()
+        e = err(got, want)
+        del want
+        if not timed_case:
+            check_only("glv_digits", tag, e)
+            return
+        ms = timed(lambda: MSM.glv_digits(sc, cc, 0, nw, params, half), 20)
+        entries = got.numel() // nw
+        record("glv_digits", tag, e, ms, plain_ms,
+               sc.numel() // 8 * 32 + got.numel() * 8,
+               entries * glv_imads if params is not None else 0)
+
+    def scale_case(tag, fn, plain, nbytes, products):
+        got = fn()
+        want, plain_ms = timed_once(plain)
+        torch.cuda.synchronize()
+        e = err(got, want)
+        del got, want
+        ms = timed(fn, 20)
+        record("fq_scale", tag, e, ms, plain_ms, nbytes,
+               products * MONT_IMADS)
+
+    for grp, params in (("g1", GLVM.G1_PARAMS), ("g2", GLVM.G2_PARAMS)):
+        esc = edge_w[None]
+        for cc in (4, 8, 11, 13, 16):
+            for half in (None, 0, 1):
+                digits_case(f"{grp} edge table c={cc} half={half}", esc,
+                            params, half, cc, timed_case=False)
+    for cc in (4, 8, 11, 13, 16):
+        digits_case(f"edge table c={cc} no GLV", edge_w[None], None, None,
+                    cc, timed_case=False)
+    for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
+        seg_ = geo[logn]["segment"] if logn != LOGN_BIG else 0
+        cc = geo[logn]["c"] if seg_ else c_big
+        for grp, rows_, params, A_ in (("g1", 4, GLVM.G1_PARAMS, 2),
+                                       ("g2", 1, GLVM.G2_PARAMS, 4)):
+            n_ = seg_ or (1 << logn)
+            sc = fe_card(R_FR, (rows_, 2 * n_ if seg_ else n_))
+            sc.view(-1, 8)[:edge_w.shape[0]] = edge_w
+            view = sc[:, n_:] if seg_ else sc
+            half = (1 if grp == "g1" else 0) if seg_ else None
+            key = f"{grp} {rows_} x 2^{n_.bit_length() - 1}" + (
+                f" half {half} of a 2^{logn} slice" if seg_ else
+                f" both halves, the 2^{logn} prove")
+            digits_case(key, view, params, half, cc)
+            prep[("glv_digits", logn, grp)] = key
+            del sc, view
+            table = fe_card(P, (rows_, 2 * n_ if seg_ else n_, A_))
+            part = table[:, n_:] if seg_ else table
+            nx = A_ // 2
+            beta = GLVM.params_for(G1P if grp == "g1" else G2P_ISO).beta_mont
+            spec = (beta,) * nx + (None,) * nx
+            key = f"phi {grp} {rows_} x 2^{n_.bit_length() - 1}" + (
+                f" a 2^{logn} slice" if seg_ else f" the 2^{logn} table")
+            scale_case(key, lambda: MSM._phi(G1P if grp == "g1" else
+                                             G2P_ISO, part),
+                       lambda: MSM.fq_scale_plain(part, spec),
+                       2 * part.numel() * 4, rows_ * n_ * nx)
+            prep[("fq_scale", logn, grp)] = key
+            del table, part
+        torch.cuda.empty_cache()
+    Mc = 1 << (c_big - 1)
+    for grp, curve, L_, op in (("g1", G1P, 3, "neg_rx"),
+                               ("g2", G2P_ISO, 6, "neg")):
+        rows_ = 4 if grp == "g1" else 1
+        Ab = fe_card(P, (G, rows_, Mc + 1, L_))
+        head = Ab[..., :Mc, :, :]
+        ext = 2 if grp == "g2" else 1
+        scale_case(f"neg {grp} {G} x {rows_} x {Mc} buckets (a view)",
+                   lambda: MSM.point_neg(curve, head),
+                   lambda: MSM.fq_scale_plain(head, (None, op, None), ext),
+                   2 * head.numel() * 4, 0)
+        del Ab, head
+    tot = fe_card(P, (-(-GLV_BITS // c_big), 1, 6))
+    iso = G2P_ISO.iso
+    scale_case("iso back 10 x 1 window totals",
+               lambda: MSM._iso_scale(G2P, tot, back=True),
+               lambda: MSM.fq_scale_plain(tot, (iso["w2i"], iso["w3i"],
+                                                None), 2),
+               2 * tot.numel() * 4, tot.shape[0] * 6)
+    for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
+        tbl = fe_card(P, (1, 1 << logn, 4))
+        spec = (iso["w2"], iso["w3"])
+        scale_case(f"rescale the 2^{logn} G2 table",
+                   lambda: MSM.g2_rescale_packed(tbl),
+                   lambda: torch.cat([MSM.fq_scale_plain(
+                       tbl[:, lo:lo + (1 << 18)], spec, 2)
+                       for lo in range(0, 1 << logn, 1 << 18)], dim=1),
+                   2 * tbl.numel() * 4, (1 << logn) * 6)
+        del tbl
+        torch.cuda.empty_cache()
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -1018,7 +1163,7 @@ def main() -> int:
         D.reset_counts()
         proof, pub = prover.prove(wt.values, r=rs[0], s=rs[1], peaks=peaks)
         torch.cuda.synchronize()
-        need(D.counts, FRONT_KERNELS, f"the prove {tag}")
+        need(D.counts, PROVE_KERNELS, f"the prove {tag}")
         peak = (torch.cuda.max_memory_allocated() if peaks is None
                 else max(peaks.values()))
         phases = dict(prover.last_phases)
@@ -1029,6 +1174,90 @@ def main() -> int:
             + ("" if peaks is None else f"stage peaks {json.dumps(peaks)} ")
             + "verified True")
         return phases, peak
+
+    def profiled_prove(prover, zpath, wpath, want):
+        """One more warm prove (the fixed (r, s)) under torch.profiler,
+        CUDA activity, no stacks; the proof must equal `want`. Returns
+        the device kernels launched in the prove and in the MSMs' window
+        (Prover.msms to its last kernel: a synchronize closes it), and
+        the share of each window in which some kernel or copy ran on the
+        card; the kernels taking most of the window's device time."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+        wt = read_wtns(wpath)
+        real_msms = prover.msms
+
+        def msms(*a, **kw):
+            with record_function("chip_smoke.msms"):
+                res = real_msms(*a, **kw)
+                torch.cuda.synchronize()
+            return res
+
+        prover.msms = msms
+        t0 = time.perf_counter()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("chip_smoke.prove"):
+                    proof, pub = prover.prove(wt.values, r=r_fix, s=s_fix)
+                    torch.cuda.synchronize()
+        finally:
+            del prover.msms
+        prove_s = time.perf_counter() - t0
+        if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
+            raise RuntimeError("the profiled prove's proof differs")
+        t1 = time.perf_counter()
+        evs = prof.events()
+        cuda_t = torch.autograd.DeviceType.CUDA
+        dev_evs = [e for e in evs if e.device_type == cuda_t
+                   and not e.name.startswith("chip_smoke.")]
+        win = {e.name: (e.time_range.start, e.time_range.end) for e in evs
+               if e.name.startswith("chip_smoke.")
+               and e.device_type != cuda_t}
+
+        def kernel(e):
+            return not e.name.startswith(("Memcpy", "Memset"))
+
+        def busy(lo, hi):
+            spans = sorted(
+                (max(e.time_range.start, lo), min(e.time_range.end, hi))
+                for e in dev_evs
+                if e.time_range.end > lo and e.time_range.start < hi)
+            tot, cur_lo, cur_hi = 0, None, None
+            for a, b in spans:
+                if cur_hi is None or a > cur_hi:
+                    if cur_hi is not None:
+                        tot += cur_hi - cur_lo
+                    cur_lo, cur_hi = a, b
+                else:
+                    cur_hi = max(cur_hi, b)
+            if cur_hi is not None:
+                tot += cur_hi - cur_lo
+            return tot
+
+        out = {"prove_s": prove_s, "device_events": len(dev_evs)}
+        for tag, name in (("prove", "chip_smoke.prove"),
+                          ("msms", "chip_smoke.msms")):
+            if name not in win:
+                continue
+            lo, hi = win[name]
+            inside = [e for e in dev_evs if lo <= e.time_range.start < hi]
+            by_name = Counter()           # names cut to 80 characters
+            for e in inside:
+                by_name[e.name[:80]] += e.time_range.end - e.time_range.start
+            out[tag] = {
+                "window_ms": (hi - lo) / 1e3,
+                "kernel_launches": sum(1 for e in inside if kernel(e)),
+                "copies": sum(1 for e in inside if not kernel(e)),
+                "busy_ms": busy(lo, hi) / 1e3,
+                "busy_share": busy(lo, hi) / (hi - lo) if hi > lo else None,
+                "top_kernels_ms": {k: v / 1e3
+                                   for k, v in by_name.most_common(15)}}
+        out["post_processing_s"] = time.perf_counter() - t1
+        if not dev_evs:
+            log("  profiler: no device activity in the trace; the idle "
+                "share is not measured")
+        log(f"  profiled prove: {json.dumps(out)}")
+        return out
 
     def front_rows(prover, wpath):
         """Prover.front alone: the MSM scalar rows, the front's own peak
@@ -1063,6 +1292,8 @@ def main() -> int:
     # plain field arithmetic or limb (un)packing on the card: those raise
     # while either runs
     FRONT_KERNELS = ("fr_slot_acc", "fr_pointwise")
+    # every prove runs the MSM's preparation kernels too
+    PROVE_KERNELS = FRONT_KERNELS + ("glv_digits", "fq_scale")
     guarded = [(FF.FieldOps, n) for n in (
         "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
         "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx", "from_mont",
@@ -1085,14 +1316,61 @@ def main() -> int:
 
     def guarded(real, where):
         def run(*args, **kw):
+            before = {(o, n): getattr(o, n) for o, n in plain_fns}
             for (o, n), fn in plain_fns.items():
                 setattr(o, n, refuse_on_card(n, fn, where))
             try:
                 return real(*args, **kw)
             finally:
-                for (o, n), fn in plain_fns.items():
+                for (o, n), fn in before.items():
                     setattr(o, n, fn)
         return run
+
+    # plain field arithmetic (FieldOps: products, sums, inversions) and
+    # GLV.decompose on CUDA tensors are counted while a Prover is set up
+    # and proves at 2^24 (K = 1 and 3) and while the server loads and
+    # answers; each such run fails unless it counted none
+    counted = [(FF.FieldOps, n) for n in (
+        "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
+        "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx", "from_mont",
+        "to_mont", "reduce_wide")] + [(GLVM, "decompose")]
+
+    def on_card(x):
+        if isinstance(x, torch.Tensor):
+            return x.is_cuda
+        if isinstance(x, (list, tuple)):
+            return any(on_card(y) for y in x)
+        if isinstance(x, dict):
+            return any(on_card(y) for y in x.values())
+        return False
+
+    @contextlib.contextmanager
+    def no_plain_on_card(where):
+        calls = Counter()
+        before = {(o, n): getattr(o, n) for o, n in counted}
+
+        def counting(n, fn):
+            def run(*args, **kw):
+                if on_card(args) or on_card(kw):
+                    calls[n] += 1
+                return fn(*args, **kw)
+            return run
+
+        for (o, n), fn in before.items():
+            setattr(o, n, counting(n, fn))
+        try:
+            yield calls
+        finally:
+            for (o, n), fn in before.items():
+                setattr(o, n, fn)
+        log(f"  plain field ops / GLV.decompose on CUDA tensors during "
+            f"{where}: {sum(calls.values())} {json.dumps(dict(calls))}")
+        plain_on_card[where] = dict(calls)
+        if calls:
+            raise RuntimeError(f"{where} ran plain arithmetic on the card: "
+                               f"{dict(calls)}")
+
+    plain_on_card = {}
 
     Prover.front = guarded(Prover.front, "Prover.front")
     # the generator's evaluation sums, guarded, with their own device peak:
@@ -1119,7 +1397,7 @@ def main() -> int:
                                     "sqchain64")
     small_counts = dict(D.counts)
     log("  launches:", json.dumps(small_counts))
-    need(small_counts, ("ntt_fused_pass",) + FRONT_KERNELS,
+    need(small_counts, ("ntt_fused_pass",) + PROVE_KERNELS,
          "the sqchain64 prove")
     if small_counts["ntt_butterfly"] or small_counts["ntt_fused_pass"] != 2:
         raise RuntimeError("the sqchain64 prove's NTTs were not one fused "
@@ -1169,7 +1447,7 @@ def main() -> int:
         proof, pub = dp.prove(mwt.values, r=r_fix, s=s_fix)
         dt = time.perf_counter() - t0
         dcounts = dict(D.counts)
-        need(dcounts, FRONT_KERNELS, f"the multiplier prove with {k} parts")
+        need(dcounts, PROVE_KERNELS, f"the multiplier prove with {k} parts")
         ref_zk = zkey_to_ref(dz)
         want = ref_prove(ref_zk, words_to_ints(mwt.values), r=r_fix, s=s_fix)
         if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
@@ -1327,6 +1605,21 @@ def main() -> int:
         log(f"  add widths and launches as phase 2 timed them ({run} x "
             f"{times})")
 
+    def prep_launches(counts, slices, groups, what):
+        """A cold prove: the Prover's set-up rescales the G2 table (one
+        fq_scale), then two MSM calls (G1, G2) of `slices` slices each:
+        glv_digits once a slice; fq_scale once a phi slice (half of them,
+        or the whole axis), once a window group of a slice (the bucket
+        negation) and once for the G2 totals' map back off the
+        iso-twist."""
+        phis = slices // 2 if slices > 1 else 1
+        want = {"glv_digits": 2 * slices,
+                "fq_scale": 1 + 2 * phis + 2 * slices * groups + 1}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"{what} launched {got}, not {want}")
+        log(f"  preparation kernels' launches as expected: {got}")
+
     def check_segmented(prover, logn, counts):
         """A segmented prove ran phase 2's geometry for 2^logn points and
         every scan, add and fused NTT pass at a shape phase 2 held.
@@ -1361,7 +1654,8 @@ def main() -> int:
                                f"{sorted(ntt_checked)}")
         log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
             f"{json.dumps([list(k) + [v] for k, v in seen_passes.items()])}")
-        need(counts, ("add", "ntt_fused_pass") + FRONT_KERNELS,
+        prep_launches(counts, slices, groups, f"the 2^{logn} prove")
+        need(counts, ("add", "ntt_fused_pass") + PROVE_KERNELS,
              f"the 2^{logn} prove")
         return slices, groups
 
@@ -1379,7 +1673,9 @@ def main() -> int:
     log("  launches:", json.dumps(big_counts))
     check_widths("2^20 prove", 1)
     need(big_counts, ("add", "scan_cols_packed", "ntt_fused_pass")
-         + FRONT_KERNELS, f"the 2^{LOGN_BIG} prove")
+         + PROVE_KERNELS, f"the 2^{LOGN_BIG} prove")
+    prep_launches(big_counts, 1, -(-GLV_BITS // prover.c_bits) // G,
+                  f"the 2^{LOGN_BIG} prove")
     warm, peak2 = warm_prove(prover, zpath, wpath, "big_warm")
     rows_fused, front_peak, _ = front_rows(prover, wpath)
     extras = phase4_options(prover, zpath, wpath, rows_fused)
@@ -1401,7 +1697,7 @@ def main() -> int:
                                                     "per_stage_cold")
         stage_counts = dict(D.counts)
         log("  launches:", json.dumps(stage_counts))
-        need(stage_counts, ("ntt_tail", "ntt_butterfly") + FRONT_KERNELS,
+        need(stage_counts, ("ntt_tail", "ntt_butterfly") + PROVE_KERNELS,
              "the per-stage prove")
         if stage_counts["ntt_fused_pass"]:
             raise RuntimeError("the per-stage prove ran fused passes")
@@ -1434,6 +1730,40 @@ def main() -> int:
     log(json.dumps({"gather_tools": {"bench_gather": tool_gather,
                                      "bench_dma_gather": tool_dma,
                                      "card": card}}))
+    # the MSM's measurement tools at the 2^24 and the 2^22 slice shapes:
+    # one window group's stages (G1 on 4 rows, G2 on 1 row of a slice's
+    # entries), the ablation of 4 G1 rows of 2 x segment points (four
+    # slices of the prove's shape) with its gather formulations, and a
+    # sweep of c there on G1 (4 rows) and G2
+    msm_tools = {}
+    for lg in (LOGN_MAX, LOGN_SEG):
+        g = geo[lg]
+        sl = g["segment"].bit_length() - 1
+        cc, gg, seg_ = str(g["c"]), str(g["G"]), str(g["segment"])
+        log(f"phase6: the MSM tools at the 2^{lg} slice shape")
+        D.reset_counts()
+        t0 = time.perf_counter()
+        stages = {cv: bench_msm_phases.main(
+            [str(sl), cc, gg, "3", cv, "4" if cv == "g1" else "1"],
+            device="cuda") for cv in ("g1", "g2")}
+        ablate = msm_ablate.main([str(sl + 1), "2", seg_, cc, "4", gg],
+                                 device="cuda")
+        sweep = sweep_msm.main(
+            ["both", str(sl + 1), f"{g['c'] - 1},{cc},{g['c'] + 1}", seg_,
+             "2", "4", gg], device="cuda")
+        tcounts = dict(D.counts)
+        if not (all(v["digits_equal_plain"] for v in stages.values())
+                and ablate["gather_equal"]):
+            raise RuntimeError(f"an MSM tool at the 2^{lg} slice reports a "
+                               "wrong result")
+        need(tcounts, ("glv_digits", "fq_scale", "scan_cols_packed", "add",
+                       "dma_gather"), f"the MSM tools at the 2^{lg} slice")
+        msm_tools[f"2^{lg} slice"] = {
+            "bench_msm_phases": stages, "msm_ablate": ablate,
+            "sweep_msm": sweep, "launches": tcounts,
+            "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    log(json.dumps({"msm_tools": msm_tools, "card": card}))
 
     # ---------------------------------------------------------- phase 7 --
     log("phase7: the proof server over HTTP")
@@ -1469,6 +1799,9 @@ def main() -> int:
         return srv
 
     server_http.make_server = capture
+    server_guard = contextlib.ExitStack()
+    server_guard.enter_context(no_plain_on_card(
+        "the server's registry load and requests"))
     t_load = time.perf_counter()
     srv_thread = threading.Thread(
         target=server_main, args=([str(port), zpath, small_z],), daemon=True)
@@ -1559,16 +1892,16 @@ def main() -> int:
     server_counts = dict(D.counts)
     log("  launches:", json.dumps(server_counts))
     need(server_counts, ("add", "scan_cols_packed", "ntt_fused_pass")
-         + FRONT_KERNELS, "the first 2^20 request")
+         + PROVE_KERNELS, "the first 2^20 request")
     D.reset_counts()
     req_warm, pub5 = proved(big_name, zpath, 5, "request 2^20 x0=5")
-    need(D.counts, FRONT_KERNELS, "the second 2^20 request")
+    need(D.counts, PROVE_KERNELS, "the second 2^20 request")
     if pub5 == pub3:
         raise RuntimeError("the second request returned the first's publics")
     D.reset_counts()
     req_small, _ = proved("sqchain64", small_z, 3, "request sqchain64")
     server_small_counts = dict(D.counts)
-    need(server_small_counts, ("ntt_fused_pass",) + FRONT_KERNELS,
+    need(server_small_counts, ("ntt_fused_pass",) + PROVE_KERNELS,
          "the sqchain64 request")
     if server_small_counts["ntt_butterfly"]:
         raise RuntimeError("the sqchain64 request launched ntt_butterfly")
@@ -1604,6 +1937,7 @@ def main() -> int:
     http_server.server_close()
     if srv_thread.is_alive():
         raise RuntimeError("the server thread did not stop")
+    server_guard.close()
     for loaded in full_prover.provers.values():
         loaded.release()
     del full_prover, started
@@ -1698,15 +2032,25 @@ def main() -> int:
 
     Prover.__init__ = peaked_init
     D.reset_counts()
-    with RssPeak() as cli_rss:
+    with RssPeak() as cli_rss, no_plain_on_card(
+            f"the 2^{LOGN_MAX} CLI prove (the Prover's set-up included)"):
         cold, cold_peak, prover = logged_prove(zpath, wpath, "max_cold")
     max_counts = dict(D.counts)
     host["cli_rss_peak"] = cli_rss.peak
     host["machine_after"] = machine(fixdir)
     slices, groups = check_segmented(prover, LOGN_MAX, max_counts)
     peaks, k1_proof = {}, []
-    warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks,
-                         rs=(r_fix, s_fix), proof_out=k1_proof)
+    with no_plain_on_card(f"the warm 2^{LOGN_MAX} prove"):
+        warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks,
+                             rs=(r_fix, s_fix), proof_out=k1_proof)
+    profile = profiled_prove(prover, zpath, wpath, k1_proof[0])
+    if "msms" in profile:
+        # the profiler's host cost stretches its window: the device's
+        # kernel time against the unprofiled warm prove's MSMs too
+        profile["msms"]["busy_over_unprofiled_msms"] = \
+            profile["msms"]["busy_ms"] / 1e3 / warm["msms"]
+        log(f"  MSMs' device time {profile['msms']['busy_ms']:.1f} ms of "
+            f"the unprofiled warm MSMs' {warm['msms'] * 1e3:.1f} ms")
     setup = dict(prover.setup_phases)
     k1_coef_bytes = (prover.coef_s.numel() * prover.coef_s.element_size()
                      + prover.coef_val.numel() * 4)
@@ -1742,7 +2086,8 @@ def main() -> int:
         "nmax": prover.nmax, "segment": prover.segment,
         "c_bits": prover.c_bits, "window_group": geo[LOGN_MAX]["G"],
         "slices": slices, "window_groups": groups,
-        "ntt_sequential": prover.ntt_seq, "host": host, "card": card}
+        "ntt_sequential": prover.ntt_seq, "host": host,
+        "profile_warm": profile, "card": card}
     prover.release()
     del prover
     torch.cuda.empty_cache()
@@ -1777,6 +2122,9 @@ def main() -> int:
     del parts3
     split_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    k3_guard = contextlib.ExitStack()
+    k3_guard.enter_context(no_plain_on_card(
+        f"the 2^{LOGN_MAX} K = 3 Prover's set-up and proves"))
     prover = Prover(zk3, device="cuda")
     Prover.__init__ = real_init
     zk.close()
@@ -1798,6 +2146,7 @@ def main() -> int:
                             peaks=k3_peaks, rs=(r_fix, s_fix),
                             proof_out=k3_proofs)
     k3_counts = dict(D.counts)
+    k3_guard.close()
     slots_k3_ms = prover_slots(prover, "prover tables")
     pa, pb = k1_proof[0], k3_proofs[-1]
     if (pa.a, pa.b, pa.c) != (pb.a, pb.b, pb.c):
@@ -1824,6 +2173,7 @@ def main() -> int:
                  "front_peak_allowed": allowed}
     out["fr_slot_acc_prover_tables_ms"] = {"K=1": slots_k1_ms,
                                            "K=3": slots_k3_ms}
+    out["plain_on_card"] = plain_on_card
     prover.release()
     del prover
     torch.cuda.empty_cache()
@@ -1856,6 +2206,10 @@ def main() -> int:
                         big_counts, f"2^{LOGN_BIG} K=1"),
         "fr_pointwise": ("csrc/front.cu", "rapidsnark_tpu/prover.py:686",
                          big_counts, f"h 2^{LOGN_BIG}"),
+        "glv_digits": ("csrc/msm.cu", "rapidsnark_tpu/ops/glv.py:230",
+                       big_counts, prep[("glv_digits", LOGN_BIG, "g1")]),
+        "fq_scale": ("csrc/msm.cu", "rapidsnark_tpu/ops/msm.py:535",
+                     big_counts, prep[("fq_scale", LOGN_BIG, "g1")]),
     }
     runs = {"sqchain64": small_counts, f"2^{LOGN_BIG}": big_counts,
             f"2^{LOGN_BIG} per-stage": stage_counts,

@@ -24,13 +24,13 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build", "rapidsnark_tpu_torch")
-SOURCES = ("curve", "ntt", "gather", "front")
+SOURCES = ("curve", "ntt", "gather", "front", "msm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("add", "scan_cols_packed", "ntt_fused_pass", "ntt_butterfly",
            "ntt_tail", "add_mixed_packed", "add_mixed", "dma_gather",
-           "fr_slot_acc", "fr_pointwise")
+           "fr_slot_acc", "fr_pointwise", "glv_digits", "fq_scale")
 # launches of each kernel since the last reset_counts(); a wrapper adds
 # one for each launch it makes and nowhere else
 counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -53,6 +53,8 @@ _ARGTYPES = {
                        _VP, _VP, _LL, _VP],
     "rs_front_occupancy": [_I, _I, _VP],
     "rs_fr_pointwise": [_I, _VP, _VP, _VP, _VP, _LL, _LL, _VP],
+    "rs_glv_digits": [_VP, _LL, _LL, _LL, _VP, _I, _I, _I, _I, _I, _VP, _VP],
+    "rs_fq_scale": [_VP, _LL, _LL, _LL, _I, _I, _VP, _VP, _VP, _VP],
 }
 
 

@@ -4,12 +4,15 @@ Counterpart of `rapidsnark_tpu/ops/glv.py`: k = k1 + k2*lam (mod r) with
 |ki| < 2^127 by Babai round-off against a Gauss-reduced lattice basis,
 so an n-point 254-bit MSM becomes a 2n-point 128-bit MSM over the
 virtual table [P, phi(P)], phi(x, y) = (beta*x, y). The rounding
-products run as exact 16-bit-limb convolutions in int64.
+products run as exact 16-bit-limb convolutions in int64: the plain
+version, which ops/msm.glv_digits runs on CPU tensors; on the card its
+kernel (csrc/msm.cu) computes the same integers in 32-bit words.
 """
 
 from __future__ import annotations
 
 import os
+import random
 
 import torch
 
@@ -85,6 +88,31 @@ class GLVParams:
 
 G1_PARAMS = GLVParams(LAM_G1, BETA_G1)
 G2_PARAMS = GLVParams(LAM_G2, BETA_G2)
+
+
+def edge_scalars(params: GLVParams, seed: int = 0) -> list:
+    """Scalars < r at the edges of the decomposition, where a slip in its
+    limb arithmetic would show and random scalars almost never go: 0, 1,
+    r - 1 and their neighbours, powers of two around 2^127 and 2^253,
+    small multiples of lam, both sides of the rounding steps of c1 and
+    c2 (k g next to j 2^272 - 2^271), and a + b lam for a, b at 0, +-1,
+    +-2^125 and +-bound (|k1|, |k2| next to their largest)."""
+    rng = random.Random(seed)
+    out = [0, 1, 2, 3, _R - 1, _R - 2, _R // 2, _R // 2 + 1,
+           (1 << 127) - 1, 1 << 127, (1 << 128) - 1, 1 << 128,
+           (1 << 253) - 1, 1 << 253]
+    out += [k * params.lam % _R for k in (1, 2, 3, -1, -2)]
+    out += [(params.lam + d) % _R for d in (-1, 1)]
+    for g in (params.g1, params.g2):
+        for _ in range(4):
+            j = rng.randrange(1, (_R * g) >> _S)
+            k0 = -(-((j << _S) - (1 << (_S - 1))) // g)
+            out += [k for k in (k0 - 1, k0, k0 + 1) if 0 <= k < _R]
+    big = params.bound
+    for a in (0, 1, -1, 1 << 125, -(1 << 125), big, -big):
+        for b in (0, 1, -1, 1 << 125, -(1 << 125), big, -big):
+            out.append((a + b * params.lam) % _R)
+    return out
 
 
 def params_for(curve) -> GLVParams:

@@ -18,18 +18,32 @@ Points are packed element-major int32 tensors: affine tables
 (*batch, n, A, 8) with A = 2 (G1) / 4 (G2) and (0,0) = infinity, the
 zkey's own point layout; projective points (..., L, 8), L = 3 / 6.
 Scalars are (*batch, n, 8) packed words of plain little-endian integers.
+
+The scalars' preparation (GLV split and signed-digit recode) and the
+points' (phi image, negation, the iso-twist's scaling) run on two
+hand-written kernels of csrc/msm.cu, each beside its plain version:
+
+  glv_digits  GLV halves of the scalars and their encoded signed digits
+  fq_scale    packed Fq / Fq2 coordinates times a constant, or negated
+
+For a tensor on the CPU a wrapper runs the plain PyTorch version; for a
+CUDA tensor it launches the kernel on the current stream and counts the
+launch, or raises. There is no fallback.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
+from .. import device as D
+from ..ref.field import P as _P
 from . import field as FF
 from . import fused
 from . import glv as GLV
-from .curve import FQ2, G2P_ISO, is_g2, pack_point, relaxed_for, unpack_point
+from .curve import FQ2, G2P_ISO, is_g2, pack_point, relaxed_for
 from .field import FQ
 
 SCALAR_BITS = 256
@@ -50,10 +64,10 @@ def _select(mask, a, b):
 
 
 def point_neg(curve, pt: torch.Tensor) -> torch.Tensor:
-    """-P on packed projective points (relaxed negation on G1)."""
-    p = unpack_point(curve, pt)
-    neg = curve.neg_rx if relaxed_for(curve) else curve.neg
-    return pack_point(neg(p))
+    """-P on packed projective points (..., L, 8) (relaxed negation on
+    G1: y -> 2p - y), through fq_scale."""
+    op = "neg_rx" if relaxed_for(curve) else "neg"
+    return fq_scale(pt, (None, op, None), 2 if is_g2(curve) else 1)
 
 
 def _batch_index(shape, nbatch: int, device):
@@ -226,6 +240,180 @@ def group_signed_digits(scalars9, carry_bits, w0: int, G: int, c: int,
     return torch.stack(rows)
 
 
+def _row_layout(t: torch.Tensor, tail: tuple, name: str):
+    """(rows, n, row stride in words) of a (*lead, n, *tail) int32 tensor
+    on the card whose rows of n entries are each contiguous and whose
+    leading axes merge into one stride (a slice of a contiguous tensor
+    along n qualifies); raises on anything else."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected torch.int32, got {t.dtype}")
+    k = len(tail)
+    if t.dim() < k + 1 or tuple(t.shape[-k:]) != tuple(tail):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} is not (..., n, "
+                         f"{', '.join(map(str, tail))})")
+    inner = 1
+    for d in range(t.dim() - 1, t.dim() - k - 2, -1):
+        if t.shape[d] > 1 and t.stride(d) != inner:
+            raise ValueError(f"{name}: rows of shape {tuple(t.shape)} "
+                             f"strides {t.stride()} are not contiguous")
+        inner *= t.shape[d]
+    lead = t.dim() - k - 1
+    n = t.shape[lead]
+    rows, stride = 1, inner
+    for d in range(lead - 1, -1, -1):
+        if t.shape[d] == 1:
+            continue
+        if rows > 1 and t.stride(d) != stride * rows:
+            raise ValueError(f"{name}: leading axes of strides {t.stride()} "
+                             "do not merge")
+        if rows == 1:
+            stride = t.stride(d)
+        rows *= t.shape[d]
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data is not 16-byte aligned")
+    return rows, n, stride
+
+
+# ---------------------------------------------------------------------------
+# scalar and point preparation kernels (csrc/msm.cu)
+# ---------------------------------------------------------------------------
+
+def _glv_consts(params) -> ctypes.Array:
+    """glv_digits' 34 constant words: g1, g2 (5 words each), t1a, t2a,
+    t1b, t2b (6 words each)."""
+    words = []
+    for v, nw in ((params.g1, 5), (params.g2, 5), (params.t1a, 6),
+                  (params.t2a, 6), (params.t1b, 6), (params.t2b, 6)):
+        if v >> (32 * nw):
+            raise ValueError("glv_digits: a GLV constant is too wide")
+        words += [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def glv_digits_plain(scalars, c: int, w0: int, G: int, params=None,
+                     half=None):
+    if params is None:
+        s9 = _pad_word(scalars)
+        return group_signed_digits(s9, signed_digit_carries(s9, c), w0, G,
+                                   c)
+    words, neg = GLV.decompose(params, scalars)
+    if half is not None:
+        n = scalars.shape[-2]
+        words = words[..., half * n:(half + 1) * n]
+        neg = neg[..., half * n:(half + 1) * n]
+    carries = signed_digit_carries(words, c, GLV.GLV_BITS, lead=True)
+    return group_signed_digits(words, carries, w0, G, c,
+                               lead=True) ^ neg[None]
+
+
+def glv_digits(scalars: torch.Tensor, c: int, w0: int, G: int,
+               params=None, half=None) -> torch.Tensor:
+    """The encoded signed digits |d|*2 + (d<0) of windows w0 .. w0+G-1 of
+    each scalar's signed recode into c-bit windows: (G, *b, H*n) int64.
+
+    scalars: (*b, n, 8) packed words (rows of n contiguous scalars). With
+    `params` (ops/glv.GLVParams) every scalar splits by GLV into k1 and k2
+    (ops/glv.decompose), each recoded over 128 bits with every digit's
+    sign bit flipped where its half is negative: half=0 or 1 gives that
+    half alone (H = 1), half=None both as [k1 | k2] along the entry axis
+    (H = 2). Without `params` the 256-bit scalar itself (H = 1)."""
+    bits = SCALAR_BITS if params is None else GLV.GLV_BITS
+    if not 1 <= c <= 16:
+        raise ValueError(f"glv_digits: window bits {c} not in 1..16")
+    nwin = -(-bits // c)
+    if nwin > 64 or w0 < 0 or G < 1 or w0 + G > nwin:
+        raise ValueError(f"glv_digits: windows {w0}..{w0 + G - 1} of "
+                         f"{nwin} (at most 64)")
+    if half not in (None, 0, 1) or (params is None and half is not None):
+        raise ValueError(f"glv_digits: half {half!r} without a GLV split "
+                         "or not 0 / 1")
+    if scalars.device.type == "cpu":
+        return glv_digits_plain(scalars, c, w0, G, params, half)
+    rows, n, stride = _row_layout(scalars, (8,), "glv_digits.scalars")
+    nh = 2 if params is not None and half is None else 1
+    out = torch.empty((G,) + tuple(scalars.shape[:-2]) + (nh * n,),
+                      dtype=torch.int64, device=scalars.device)
+    consts = None if params is None else _glv_consts(params)
+    rc = D.lib("msm").rs_glv_digits(
+        scalars.data_ptr(), rows, stride, n,
+        None if consts is None else ctypes.addressof(consts), half or 0, nh,
+        c, w0, G, out.data_ptr(), D.stream(scalars))
+    D.check(rc, "glv_digits")
+    D.count("glv_digits")
+    return out
+
+
+_SCALE_CODES = {None: 0, "neg": 2, "neg_rx": 3}
+
+
+def fq_scale_plain(t, spec, ext: int = 1):
+    comps = [t[..., j, :] for j in range(t.shape[-2])]
+    out = []
+    for m, op in enumerate(spec):
+        cs = comps[m * ext:(m + 1) * ext]
+        if op is None:
+            out += cs
+        elif op in ("neg", "neg_rx"):
+            fn = FQ.neg if op == "neg" else FQ.neg_rx
+            out += [FF.pack(fn(FF.unpack(x))) for x in cs]
+        elif ext == 1:
+            x = FF.unpack(cs[0])
+            out.append(FF.pack(FQ.mul(x, FQ.const(op, tuple(x.shape[1:]),
+                                                  x.device))))
+        else:
+            x = (FF.unpack(cs[0]), FF.unpack(cs[1]))
+            k = FQ2.const(op, tuple(x[0].shape[1:]), x[0].device)
+            out += [FF.pack(e) for e in FQ2.mul_many([(x, k)])[0]]
+    return torch.stack(out, dim=-2)
+
+
+def fq_scale(t: torch.Tensor, spec, ext: int = 1) -> torch.Tensor:
+    """Packed points (*b, n, A, 8) (or (..., A, 8) of any leading shape)
+    coordinate by coordinate: `spec` has one entry for each of the A/ext
+    coordinates (ext = 1: Fq components, 2: Fq2 pairs): None copies it,
+    "neg" negates it canonically (p - a, 0 for 0), "neg_rx" as the
+    relaxed G1 law does (2p - a), and a Montgomery constant (an int for
+    ext 1, a pair for ext 2) multiplies it (canonical out). Returns a new
+    contiguous tensor of t's shape."""
+    A = t.shape[-2]
+    if t.dim() < 2 or t.shape[-1] != 8 or ext not in (1, 2) or \
+            len(spec) * ext != A or A > 6:
+        raise ValueError(f"fq_scale: {len(spec)} coordinates of {ext} "
+                         f"components for points {tuple(t.shape)}")
+    for op in spec:
+        if not (op in _SCALE_CODES if isinstance(op, (str, type(None)))
+                else (isinstance(op, int) if ext == 1 else
+                      isinstance(op, tuple) and len(op) == 2)):
+            raise ValueError(f"fq_scale: {op!r} is no op of an ext-{ext} "
+                             "coordinate")
+    if t.device.type == "cpu":
+        return fq_scale_plain(t, spec, ext)
+    v = t if t.dim() >= 3 else t[None]
+    rows, n, stride = _row_layout(v, (A, 8), "fq_scale")
+    ops = (ctypes.c_int * len(spec))()
+    consts = (ctypes.c_uint32 * (8 * A))()
+    for m, op in enumerate(spec):
+        if isinstance(op, (str, type(None))):
+            ops[m] = _SCALE_CODES[op]
+            continue
+        ops[m] = 1
+        vals = (op,) if ext == 1 else tuple(op)
+        for e, val in enumerate(vals):
+            j = (m * ext + e) * 8
+            val %= _P
+            for w in range(8):
+                consts[j + w] = (val >> (32 * w)) & 0xFFFFFFFF
+    out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+    rc = D.lib("msm").rs_fq_scale(
+        v.data_ptr(), rows, stride, n, A, ext, ctypes.addressof(ops),
+        ctypes.addressof(consts), out.data_ptr(), D.stream(t))
+    D.check(rc, "fq_scale")
+    D.count("fq_scale")
+    return out
+
+
 def best_window_bits(n: int, segment: int = 0) -> int:
     """The JAX package's cost-model choice of c (13 at 2^17+ points on the
     unsegmented GLV path)."""
@@ -292,13 +480,12 @@ def _window_group(curve, pts, digits, n: int, c: int):
 
 
 def _phi(curve, pts):
-    """phi(x, y) = (beta*x, y) on a packed affine table (*b, n, A, 8);
-    (0,0) is fixed by phi."""
+    """phi(x, y) = (beta*x, y) on a packed affine table (*b, n, A, 8),
+    each x component times the Fq constant beta (fq_scale); (0,0) is
+    fixed by phi."""
     beta = GLV.params_for(curve).beta_mont
     nx = 2 if is_g2(curve) else 1
-    x = FF.unpack(pts[..., :nx, :])
-    xphi = FF.pack(FQ.mul(x, FQ.const(beta, tuple(x.shape[1:]), x.device)))
-    return torch.cat([xphi, pts[..., nx:, :]], dim=-2)
+    return fq_scale(pts, (beta,) * nx + (None,) * nx)
 
 
 def _table_slice(curve, pts, off: int, size: int):
@@ -337,7 +524,6 @@ def _segmented_groups(sc, pts, scalars, c: int, G_: int, nwin: int,
         raise ValueError(f"msm: segment {segment} must divide {npts} points "
                          f"and be a multiple of {_CHUNK}")
     bshape = tuple(scalars.shape[:-2])
-    bits = GLV.GLV_BITS if glv else SCALAR_BITS
     ngroups = nwin // G_
     accs = [point_inf(sc, (G_,) + bshape, scalars.device)
             for _ in range(ngroups)]
@@ -346,19 +532,14 @@ def _segmented_groups(sc, pts, scalars, c: int, G_: int, nwin: int,
         scseg = scalars[..., offp:offp + segment, :]
         if glv:
             pseg = _table_slice(sc, pts, off, segment)
-            d2, n2 = GLV.decompose(GLV.params_for(sc), scseg)
-            start = segment if off >= npts else 0
-            s9seg = d2[..., start:start + segment]
-            nseg = n2[..., start:start + segment][None]
+            dseg = glv_digits(scseg, c, 0, nwin, GLV.params_for(sc),
+                              half=int(off >= npts))
         else:
             pseg = pts[..., off:off + segment, :, :]
-            s9seg, nseg = _pad_word(scseg), None
-        cseg = signed_digit_carries(s9seg, c, bits, lead=glv)
+            dseg = glv_digits(scseg, c, 0, nwin)
         for ig in range(ngroups):
-            dseg = group_signed_digits(s9seg, cseg, ig * G_, G_, c, lead=glv)
-            if nseg is not None:
-                dseg = dseg ^ nseg
-            t = _window_group(sc, pseg, dseg, segment, c)
+            t = _window_group(sc, pseg, dseg[ig * G_:(ig + 1) * G_],
+                              segment, c)
             accs[ig] = fused.add(sc, accs[ig], t.contiguous())
     return accs
 
@@ -368,12 +549,8 @@ def _iso_scale(curve, pt, back: bool):
     iso-twist the scan and the add kernel run on: (x*w2, y*w3, z), or
     with back=True (x/w2, y/w3, z)."""
     iso = curve.iso_scan.iso
-    x, y, z = unpack_point(curve, pt)
-    sh = tuple(x[0].shape[1:])
-    k2 = FQ2.const(iso["w2i" if back else "w2"], sh, pt.device)
-    k3 = FQ2.const(iso["w3i" if back else "w3"], sh, pt.device)
-    x, y = FQ2.mul_many([(x, k2), (y, k3)])
-    return pack_point((x, y, z))
+    return fq_scale(pt, (iso["w2i" if back else "w2"],
+                         iso["w3i" if back else "w3"], None), ext=2)
 
 
 def _horner(curve, wpts, nwin: int, c: int):
@@ -446,18 +623,12 @@ def msm(curve, pts, scalars, c: int, window_group: int = 5,
                                    glv)
     else:
         if glv:
-            s9, neg = GLV.decompose(GLV.params_for(curve), scalars)
-            neg = neg[None]
+            digits = glv_digits(scalars, c, 0, nwin, GLV.params_for(curve))
             p2 = _table_slice(sc, pts, 0, n)
         else:
-            s9, neg, p2 = _pad_word(scalars), None, pts
-        carries = signed_digit_carries(s9, c, bits, lead=glv)
-        groups = []
-        for ig in range(nwin // G_):
-            dg = group_signed_digits(s9, carries, ig * G_, G_, c, lead=glv)
-            if neg is not None:
-                dg = dg ^ neg
-            groups.append(_window_group(sc, p2, dg, n, c))
+            digits, p2 = glv_digits(scalars, c, 0, nwin), pts
+        groups = [_window_group(sc, p2, digits[ig * G_:(ig + 1) * G_], n, c)
+                  for ig in range(nwin // G_)]
     wpts = torch.cat(groups, dim=0)                # (W, *b, L, 8) on sc
     assert wpts.shape[:1 + len(bshape)] == (nwin,) + bshape
     if combine:
@@ -471,17 +642,7 @@ def msm(curve, pts, scalars, c: int, window_group: int = 5,
 # zkey-layout helpers
 # ---------------------------------------------------------------------------
 
-def g2_rescale_packed(pts, chunk: int = 1 << 18):
+def g2_rescale_packed(pts):
     """Rescale a packed G2 affine table (..., 4, 8) onto the iso-twist
-    G2P_ISO: (x*w2, y*w3), chunked over points; (0,0) is fixed."""
-    flat = pts.reshape(-1, 4, 8)
-    out = torch.empty_like(flat)
-    for lo in range(0, flat.shape[0], chunk):
-        blk = flat[lo:lo + chunk]
-        x, y = unpack_point(G2P_ISO, blk)
-        sh = tuple(x[0].shape[1:])
-        w2 = FQ2.const(G2P_ISO.iso["w2"], sh, blk.device)
-        w3 = FQ2.const(G2P_ISO.iso["w3"], sh, blk.device)
-        out[lo:lo + chunk] = pack_point(tuple(FQ2.mul_many([(x, w2),
-                                                            (y, w3)])))
-    return out.reshape(pts.shape)
+    G2P_ISO: (x*w2, y*w3) through fq_scale; (0,0) is fixed."""
+    return fq_scale(pts, (G2P_ISO.iso["w2"], G2P_ISO.iso["w3"]), ext=2)

@@ -31,9 +31,7 @@ import torch
 
 from .. import config, device as D
 from ..ref.field import R_FR, fr_w
-from . import field as FF
 from . import front, fused
-from .field import FR
 
 TAIL_MIN_BITS = 12      # the per-stage path has a tail from N = 2^12
 BOTTOM_BITS = 10        # layers in the first (contiguous) pass
@@ -67,18 +65,20 @@ def powers_mont(root: int, count: int, scale: int = 1,
     """[mont(scale * root^k) for k < count] as (count, 8) int32 packed
     words, built on `device` in two levels: host lists of m ~ sqrt(count)
     powers, root^j and scale * root^(i*m), then their outer product as Fr
-    Montgomery products (entry i*m + j), _POW_LANES at a time. Canonical
-    Montgomery residues are unique, so the words are the host loop's."""
+    Montgomery products (entry i*m + j) by ops/front.fr_pointwise (the
+    row of root^j broadcast over the rows of scale * root^(i*m), repeated
+    m times), _POW_LANES at a time. Canonical Montgomery residues are
+    unique, so the words are the host loop's."""
     m = 1 << (((max(count, 1) - 1).bit_length() + 1) // 2)
     rows = -(-count // m)
-    lo = FF.unpack(_words_t(_host_powers(root, m), device))[:, None, :]
-    hi = FF.unpack(_words_t(_host_powers(pow(root, m, R_FR), rows, scale),
-                            device))[:, :, None]
+    lo = _words_t(_host_powers(root, m), device)                 # (m, 8)
+    hi = _words_t(_host_powers(pow(root, m, R_FR), rows, scale), device)
     out = torch.empty((rows * m, 8), dtype=torch.int32, device=device)
     step = max(1, _POW_LANES // m)
     for r in range(0, rows, step):
-        blk = FR.mul(hi[:, r:r + step], lo)                  # (16, k, m)
-        out[r * m:(r + blk.shape[1]) * m] = FF.pack(blk).reshape(-1, 8)
+        blk = hi[r:r + step, None, :].expand(-1, m, 8).contiguous()
+        out[r * m:(r + blk.shape[0]) * m] = front.fr_pointwise(
+            "mul", blk, lo).reshape(-1, 8)
     return out[:count]
 
 

@@ -413,3 +413,160 @@ def test_pointwise_kernel_matches_plain(op, ashape, bshape):
     torch.cuda.synchronize()
     assert D.counts["fr_pointwise"] == 1
     assert torch.equal(got, want)
+
+
+# -- the MSM's preparation kernels (csrc/msm.cu) ----------------------------
+
+def _prep_scalars(rows, n, seed, dev):
+    """(rows, n, 8) scalars < r: the edge table of both groups' GLV
+    constants first, then random ones."""
+    from rapidsnark_tpu_torch.ops import glv as TG
+    sc = _fe(R_FR, (rows, n), seed, "cpu")
+    edge = TG.edge_scalars(TG.G1_PARAMS) + TG.edge_scalars(TG.G2_PARAMS)
+    words = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+                      for v in edge], dtype=np.uint32).view(np.int32)
+    flat = sc.view(-1, 8)
+    flat[:len(edge)] = torch.from_numpy(words)
+    return sc.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k1", "k2", "both", "no_glv"])
+@pytest.mark.parametrize("c", [4, 8, 11, 13, 16])
+@pytest.mark.parametrize("g2", [False, True])
+def test_glv_digits_kernel_matches_plain(g2, c, mode):
+    """Every window's encoded digits of a 2^24 slice's scalars (4 rows of
+    2^19 for G1, 1 for G2; the edge table in front), and of a strided
+    slice of them as the segmented MSM cuts it; the stable sort of a
+    window group gives the plain digits' permutation."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import glv as TG
+    from rapidsnark_tpu_torch.ops import msm as TM
+    rows, n = (1, 1 << 19) if g2 else (4, 1 << 19)
+    sc = _prep_scalars(rows, n, 60 + c, dev)
+    params = None if mode == "no_glv" else (
+        TG.G2_PARAMS if g2 else TG.G1_PARAMS)
+    half = {"k1": 0, "k2": 1}.get(mode)
+    nwin = -(-(256 if params is None else 128) // c)
+    for view in (sc, sc[:, 1000:1000 + (1 << 16)]):
+        D.reset_counts()
+        got = TM.glv_digits(view, c, 0, nwin, params, half)
+        want = TM.glv_digits_plain(view, c, 0, nwin, params, half)
+        torch.cuda.synchronize()
+        assert D.counts["glv_digits"] == 1
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+    w0, G = 1, min(5, nwin - 1)                # a window range alone
+    assert torch.equal(TM.glv_digits(sc, c, w0, G, params, half),
+                       TM.glv_digits_plain(sc, c, w0, G, params, half))
+    grp = TM.glv_digits(sc, c, 0, min(5, nwin), params, half)
+    _, perm = torch.sort(grp, dim=-1, stable=True)
+    _, perm_plain = torch.sort(TM.glv_digits_plain(
+        sc, c, 0, min(5, nwin), params, half), dim=-1, stable=True)
+    assert torch.equal(perm, perm_plain)
+
+
+def _prep_points(shape, L, seed, dev):
+    """Canonical coordinates (*shape, L, 8) with (0, 0) rows and words 0,
+    1 and p - 1 in front."""
+    t = _fe(P, tuple(shape) + (L,), seed, "cpu")
+    flat = t.view(-1, L, 8)
+    flat[::7] = 0
+    flat[1, :, 0] = 1
+    flat[1, :, 1:] = 0
+    pm1 = np.array([((P - 1) >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                   dtype=np.uint32).view(np.int32)
+    flat[2] = torch.from_numpy(pm1)
+    return t.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["phi_g1", "phi_g2", "iso_fwd", "iso_back",
+                                  "neg_g1", "neg_g2", "rescale"])
+def test_fq_scale_kernel_matches_plain(case):
+    """fq_scale through each caller at its 2^24 shapes: phi on a slice of
+    the G1 (4 rows) and G2 table, the window totals to and from the
+    iso-twist, the negation of a window group's bucket sums (a strided
+    view; G1 coordinates up to 2p), the table rescale."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    seg = 1 << 19
+    if case in ("phi_g1", "phi_g2"):
+        g2 = case == "phi_g2"
+        table = _prep_points((1 if g2 else 4, 2 * seg), 4 if g2 else 2, 70,
+                             dev)
+        curve = G2P_ISO if g2 else G1P
+        D.reset_counts()
+        got = TM._table_slice(curve, table, 3 * seg, seg)
+        torch.cuda.synchronize()
+        assert D.counts["fq_scale"] == 1
+        beta = TM.GLV.params_for(curve).beta_mont
+        nx = 2 if g2 else 1
+        want = TM.fq_scale_plain(table[:, seg:], (beta,) * nx + (None,) * nx)
+        assert torch.equal(got, want)
+        return
+    if case in ("iso_fwd", "iso_back"):
+        pts = _prep_points((26, 1), 6, 71, dev)
+        got = TM._iso_scale(G2P, pts, back=case == "iso_back")
+        iso = G2P_ISO.iso
+        k = ("w2i", "w3i") if case == "iso_back" else ("w2", "w3")
+        want = TM.fq_scale_plain(pts, (iso[k[0]], iso[k[1]], None), ext=2)
+    elif case in ("neg_g1", "neg_g2"):
+        g2 = case == "neg_g2"
+        L, M = (6, 4096) if g2 else (3, 4096)
+        A = _prep_points((5, 1 if g2 else 4, M + 1), L, 72, dev)
+        if not g2:                          # relaxed coordinates up to 2p
+            two_p = np.array([((2 * P) >> (32 * i)) & 0xFFFFFFFF
+                              for i in range(8)], dtype=np.uint32)
+            A[0, 0, 3, 1] = torch.from_numpy(two_p.view(np.int32)).to(dev)
+        head = A[..., :M, :, :]
+        got = TM.point_neg(G2P_ISO if g2 else G1P, head)
+        want = TM.fq_scale_plain(head, (None, "neg" if g2 else "neg_rx",
+                                        None), 2 if g2 else 1)
+    else:
+        table = _prep_points((1, 1 << 20), 4, 73, dev)
+        got = TM.g2_rescale_packed(table)
+        want = TM.fq_scale_plain(table, (G2P_ISO.iso["w2"],
+                                         G2P_ISO.iso["w3"]), ext=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_prep_kernels_refuse_on_card():
+    """Views whose rows are not contiguous, and wrong types, raise."""
+    dev = _dev()
+    from rapidsnark_tpu_torch.ops import msm as TM
+    from rapidsnark_tpu_torch.ops import glv as TG
+    sc = _fe(R_FR, (4, 512), 74, dev)
+    with pytest.raises(ValueError):
+        TM.glv_digits(sc.transpose(0, 1), 13, 0, 10, TG.G1_PARAMS)
+    with pytest.raises(ValueError):
+        TM.glv_digits(sc.long(), 13, 0, 10, TG.G1_PARAMS)
+    pts = _fe(P, (8, 2), 75, dev)
+    with pytest.raises(ValueError):
+        TM.fq_scale(pts[::2], (1, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("glv", [True, False])
+def test_segmented_g2_msm_on_card_matches_cpu(glv):
+    """The G2 MSM in slices on the card (digits, phi, negations and the
+    iso-twist's scaling on the preparation kernels) gives the CPU's
+    words; every slice launches glv_digits once."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    n, c, G = 512, 8, 16 if glv else 32
+    pts = _fe(P, (1, n, 4), 76, "cpu")
+    pts[:, ::9] = 0
+    sc = _fe(R_FR, (1, n), 77, "cpu")
+    want = TM.msm(G2P, pts, sc, c, G, segment=256, glv=glv)
+    D.reset_counts()
+    got = TM.msm(G2P, pts.to(dev), sc.to(dev), c, G, segment=256, glv=glv)
+    torch.cuda.synchronize()
+    slices = 4 if glv else 2
+    assert D.counts["glv_digits"] == slices
+    assert D.counts["fq_scale"] == (2 if glv else 0) + slices + 1
+    assert torch.equal(got.cpu(), want)
