@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (sm_90a: H100) and nvcc; exits non-zero without
-them, or when run away from the repository. Phases, in order; any
-failure exits non-zero:
+them, or when run away from the repository. (`chip_smoke.py --rank ...`
+is one rank of the sharded phases, which start it themselves.) Phases,
+in order; any failure exits non-zero:
   1. the card's name and power limit, torch / CUDA versions, and the
      build of the five kernel libraries (all nvcc processes started
      together) with each kernel's registers, stack frame and spills,
@@ -33,7 +34,12 @@ failure exits non-zero:
      (2^21 rows, 2^22 elements: at full width it needs ~55 GB; a spilled
      row's records in parts of 2^21, summed mod r), and the fixture
      generator's shape (3 x 2^24 rows of one slot and one spilled row of
-     2^24 terms); the
+     2^24 terms); the sharded proves' shapes (the four-step NTT's
+     sub-transforms, 3 x c2 polynomials of N1 points, c2 = N2 / D, for
+     2^22 over D = 2 and 4 and 2^24 over one rank, both directions, DIT
+     with and without the pre-multiply, the plain version on 256 of
+     them; the rank's row products 3 x N/D by N/D; `add` at the
+     cross-rank sums' widths); the
      small transforms (3 x 128, 2^10 and 2^11 points: the default
      dispatch's fused passes, DIF and DIT with the coset pre-multiply)
      against the per-layer plain version and timed beside the per-layer
@@ -97,9 +103,17 @@ failure exits non-zero:
   8. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
      through the CLI entry point with the segmented MSM (cold), then on
-     the loaded Prover (warm); the proof must pairing-verify,
-     scan_cols_packed must have launched once per slice per window group
-     per MSM call, and add at the widths phase 2 timed;
+     the loaded Prover (warm, fixed (r, s)); the proof must
+     pairing-verify, scan_cols_packed must have launched once per slice
+     per window group per MSM call, and add at the widths phase 2 timed;
+     then, sharded: the same fixture proved by D = 2 and D = 4 ranks as
+     processes of this script sharing the card (backend gloo, every
+     exchange through host memory: no scaling number), each rank's proof
+     byte-equal to the warm single-card proof, its plain field ops on
+     the card 0 and every add, scan, fused NTT pass and four-step row
+     product at a shape phase 2 held; each rank's JSON line (backend,
+     points, slices, four-step shape, launches); with two or more cards
+     also D = 2 over NCCL, a card a rank (not reached on one card);
   9. generate bench_fixtures/sqchain16777216.{zkey,wtns} on the card (the
      smaller fixtures are deleted first; the machine's memory and disk
      and this process's resident memory are printed), prove it through
@@ -122,8 +136,16 @@ failure exits non-zero:
      and pairing-verify, fr_slot_acc on its tables is held and timed as
      at K = 1, and its front's peak may exceed the K = 1
      front's by no more than the larger coefficient tables plus 1 GiB; a
-     `prove_2^24` JSON line;
- 10. a `kernels` JSON line, the card line, and the result line last.
+     `prove_2^24` JSON line; then, sharded (the Provers released): the
+     2^24 fixture on a one-rank NCCL mesh in this process (four-step NTTs
+     at N1 = N2 = 2^12, the sharded MSMs) with the warm prove's (r, s),
+     byte-equal to it, kernel shapes held and no plain field op on the
+     card (set-up included), its phases, stage peaks and collective
+     seconds; and the CLI in a subprocess with RSTPU_COORD /
+     RSTPU_NPROCS=1 / RSTPU_PROC_ID=0, whose proof must pairing-verify;
+     a `sharded` JSON line;
+ 10. the run's seconds, a `kernels` JSON line, the card line, and the
+     result line last.
 
 Bounds: bytes over 3.35 TB/s (each input read once, each output written
 once) against 32-bit multiply-adds over the SMs' IMAD rate, 132 SMs x 64
@@ -167,6 +189,9 @@ LOGN_BIG = 20
 LOGN_SEG = 22       # the segmented prove
 LOGN_MAX = 24       # the production size, segmented, sequential NTTs
 GEN_LANES = 1 << 18  # scalars per fixed-base ladder chunk (fixtures._CH)
+# the sharded proves: (log2 of the domain, ranks); 2^22 on ranks that share
+# the one card over gloo, 2^24 on a one-rank NCCL mesh
+SHARDED = ((LOGN_SEG, 2), (LOGN_SEG, 4), (LOGN_MAX, 1))
 
 
 def log(*a):
@@ -302,6 +327,119 @@ def machine(path):
     return {**mem, "disk_total": du.total, "disk_free": du.free}
 
 
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def on_card(x):
+    """Whether x (a tensor, or lists, tuples, dicts of them) holds a CUDA
+    tensor."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.is_cuda
+    if isinstance(x, (list, tuple)):
+        return any(on_card(y) for y in x)
+    if isinstance(x, dict):
+        return any(on_card(y) for y in x.values())
+    return False
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count, by name, the plain field arithmetic (FieldOps: products,
+    sums, inversions) and GLV.decompose calls on CUDA tensors made while
+    the block runs; yields the Counter."""
+    from rapidsnark_tpu_torch.ops import field as FF, glv as GLVM
+    targets = [(FF.FieldOps, n) for n in (
+        "add", "sub", "neg", "double", "canon", "add_lazy", "mul",
+        "mul_many", "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx",
+        "from_mont", "to_mont", "reduce_wide")] + [(GLVM, "decompose")]
+    calls = Counter()
+    before = {(o, n): getattr(o, n) for o, n in targets}
+
+    def counting(n, fn):
+        def run(*args, **kw):
+            if on_card(args) or on_card(kw):
+                calls[n] += 1
+            return fn(*args, **kw)
+        return run
+
+    for (o, n), fn in before.items():
+        setattr(o, n, counting(n, fn))
+    try:
+        yield calls
+    finally:
+        for (o, n), fn in before.items():
+            setattr(o, n, fn)
+
+
+@contextlib.contextmanager
+def shape_log():
+    """The shapes every add, scan, fused NTT pass and fr_pointwise call
+    runs at while the block runs: yields {"add": Counter((G1?, lanes)),
+    "scan": Counter((G1?, K, lanes)), "pass": Counter((batch, n, lo, k,
+    dif, pre_mul?)), "pointwise": Counter((op, elements, b's elements))}."""
+    from rapidsnark_tpu_torch.ops import front, fused
+    from rapidsnark_tpu_torch.ops.curve import G1P
+    seen = {k: Counter() for k in ("add", "scan", "pass", "pointwise")}
+    real = (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
+            front.fr_pointwise)
+
+    def add(curve, p, q):
+        seen["add"][(curve is G1P, p.numel() // (p.shape[-2] * 8))] += 1
+        return real[0](curve, p, q)
+
+    def scan(curve, acc, cols, sign):
+        seen["scan"][(curve is G1P, cols.shape[0],
+                      acc.numel() // (acc.shape[-2] * 8))] += 1
+        return real[1](curve, acc, cols, sign)
+
+    def fused_pass(x, tw, lo_bit, nbits, dif, pre_mul=None):
+        seen["pass"][(x.shape[0], x.shape[1], lo_bit, nbits, bool(dif),
+                      pre_mul is not None)] += 1
+        return real[2](x, tw, lo_bit, nbits, dif, pre_mul)
+
+    def pointwise(op, a, b, c=None):
+        seen["pointwise"][(op, a.numel() // 8, b.numel() // 8)] += 1
+        return real[3](op, a, b, c)
+
+    (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
+     front.fr_pointwise) = (add, scan, fused_pass, pointwise)
+    try:
+        yield seen
+    finally:
+        (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
+         front.fr_pointwise) = real
+
+
+def rank_main(argv) -> int:
+    """One rank of a sharded prove, as the sharded phases start it:
+        chip_smoke.py --rank <ranks> <rank> <host:port> <backend> <zkey>
+            <wtns> <outdir> <r> <s>
+    proves on the rank's card through tools/dist_prove_worker, counting
+    the shapes of the kernels' launches and any plain field op on the
+    card (set-up included), and prints the rank's JSON line, the proof
+    included."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from rapidsnark_tpu_torch.tools import dist_prove_worker
+    nd, rank, coord, backend, zpath, wpath, outdir, r, s = argv
+    os.environ.update(RSTPU_COORD=coord, RSTPU_NPROCS=nd, RSTPU_PROC_ID=rank)
+    with plain_calls() as plain, shape_log() as seen:
+        out = dist_prove_worker.prove_rank(zpath, wpath, outdir, int(r),
+                                           int(s), "cuda", backend)
+    out["seen"] = {k: [list(key) + [v] for key, v in c.items()]
+                   for k, c in seen.items()}
+    out["plain_on_card"] = dict(plain)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -330,11 +468,13 @@ def main() -> int:
     from rapidsnark_tpu_torch.utils.limbs import words_to_ints
     from rapidsnark_tpu_torch.server import http as server_http
     from rapidsnark_tpu_torch.server.__main__ import main as server_main
+    from rapidsnark_tpu_torch.parallel import multihost as MH
     from rapidsnark_tpu_torch.tools import (bench_dma_gather, bench_gather,
-                                            bench_msm_phases, msm_ablate,
-                                            sweep_msm)
+                                            bench_msm_phases, dist_prove_worker,
+                                            msm_ablate, sweep_msm)
     from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log("card:", card)
@@ -495,6 +635,14 @@ def main() -> int:
         add_launches[curve] = {
             "2^20 prove": big,
             **{f"2^{lg} slice": g["adds"][curve] for lg, g in geo.items()}}
+    # the sharded MSM's cross-rank sum: the D ranks' window totals of a
+    # curve in one running-sum pass, log2(D) adds over W x rows x D lanes
+    for logn, nd in SHARDED:
+        nw = -(-GLV_BITS // geo[logn]["c"])
+        for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
+            if nd > 1:
+                add_launches[curve][f"2^{logn} D={nd} cross-rank sum"] = \
+                    Counter({nw * rows * nd: (nd - 1).bit_length()})
     coords = {G1P: 3, G2P_ISO: 6, G2P: 6}
     mont_add = {G1P: 17, G2P_ISO: 36}
     mont_mixed = {G1P: 14, G2P_ISO: 33}
@@ -645,19 +793,24 @@ def main() -> int:
     # 3-stack, and of the 2^24 prove's over one polynomial (sequential)
     ntt_checked = set()      # (batch, n, lo, k, dif, pre_mul) held here
 
-    def pass_cases(logn, cases, batch=3):
+    def pass_cases(logn, cases, batch=3, check_rows=None):
+        """Each (lo, k, dif, pre_mul) pass over (batch, 2^logn) held
+        against the plain version (on the first check_rows polynomials
+        when given: each is transformed on its own) and timed."""
         n = 1 << logn
         x, tw, pm = fe(R_FR, (batch, n)), fe(R_FR, (n // 2,)), fe(R_FR, (n,))
+        sub = batch if check_rows is None else min(batch, check_rows)
+        extra = {} if sub == batch else {"plain_rows": sub}
         for lo, k, dif, pre in cases:
             pmul = pm if pre else None
             ntt_checked.add((batch, n, lo, k, dif, pre))
             key = f"{batch} x 2^{logn} bits {lo}+{k} " \
                 f"{'dif' if dif else 'dit'}" + (" pre_mul" if pre else "")
             want, plain_ms = timed_once(lambda: fused.ntt_fused_pass_plain(
-                x, tw, lo, k, dif, pmul))
+                x[:sub], tw, lo, k, dif, pmul))
             got = fused.ntt_fused_pass(x, tw, lo, k, dif, pmul)
             torch.cuda.synchronize()
-            e = err(got, want)
+            e = err(got[:sub], want)
             del want, got
             ms = timed(lambda: fused.ntt_fused_pass(x, tw, lo, k, dif,
                                                     pmul), 10)
@@ -665,7 +818,8 @@ def main() -> int:
             nbytes = 2 * elems * 32 + (1 << (lo + k - 1)) * 32 + \
                 (n * 32 if pre else 0)
             imads = (elems // 2 * k + (elems if pre else 0)) * MONT_IMADS
-            record("ntt_fused_pass", key, e, ms, plain_ms, nbytes, imads)
+            record("ntt_fused_pass", key, e, ms, plain_ms, nbytes, imads,
+                   **extra)
         return x, tw
 
     for logn, batch in ((LOGN_SEG, 3), (LOGN_MAX, 1)):
@@ -673,6 +827,20 @@ def main() -> int:
                            [(lo, k, True, False) for lo, k in _passes(logn)] +
                            [(lo, k, False, lo == 0) for lo, k in _passes(logn)],
                            batch)
+        del x, tw
+        torch.cuda.empty_cache()
+    # the four-step NTT's column and row transforms (parallel/pntt): 3 x c2
+    # polynomials of N1 = N2 points, c2 = N2 / D; both twiddle directions
+    # run the DIT passes after ops/ntt.ntt's bit reversal; the DIF passes
+    # and the pre-multiply are held too
+    for logn, nd in SHARDED:
+        p1 = (logn + 1) // 2
+        c2_ = (1 << (logn - p1)) // nd
+        passes = _passes(p1)
+        x, tw = pass_cases(p1, [(lo, k, False, False) for lo, k in passes] +
+                           [(lo, k, True, False) for lo, k in passes] +
+                           [(0, passes[0][1], False, True)],
+                           batch=3 * c2_, check_rows=256)
         del x, tw
         torch.cuda.empty_cache()
     N = 1 << LOGN_BIG
@@ -940,11 +1108,14 @@ def main() -> int:
     slot_case(LOGN_MAX, 1, 1 << LOGN_MAX, extra=0, rows=3 << LOGN_MAX)
     torch.cuda.empty_cache()
 
+    pointwise_held = set()   # (op, elements, b's elements) held here
+
     def pointwise_case(op, ashape, bshape, tag):
         a, b = fe_card(R_FR, ashape), fe_card(R_FR, bshape)
         c = fe_card(R_FR, ashape) if op == "h" else None
         got = FRONT.fr_pointwise(op, a, b, c)
         n, nb = a.numel() // 8, b.numel() // 8
+        pointwise_held.add((op, n, nb))
         # the plain version on a leading slice of a's first axis
         per = n // ashape[0]
         k = ashape[0] if n <= 2 * plain_rows else 2 * plain_rows // per
@@ -974,6 +1145,28 @@ def main() -> int:
     pointwise_case("mul", (2 << LOGN_MAX,), (), f"2^{LOGN_MAX + 1} by one")
     pointwise_case("sub", (2 << LOGN_MAX,), (2 << LOGN_MAX,),
                    f"2^{LOGN_MAX + 1}")
+    # the sharded front's products of the rank's 3 x N/D slice by a row of
+    # N/D: the four-step's diagonal twiddle ((3, c2, N1) by (c2, N1)) and
+    # the coset shift; the plain version on the first 2^22 elements of
+    # the first polynomial
+    for logn, nd in SHARDED:
+        nloc = (1 << logn) // nd
+        a, b = fe_card(R_FR, (3, nloc)), fe_card(R_FR, (nloc,))
+        got = FRONT.fr_pointwise("mul", a, b)
+        m = min(nloc, 2 * plain_rows)
+        want, plain_ms = timed_once(
+            lambda: FRONT.fr_pointwise_plain("mul", a[:1, :m], b[:m]))
+        torch.cuda.synchronize()
+        e = err(got[:1, :m], want)
+        del got, want
+        ms = timed(lambda: FRONT.fr_pointwise("mul", a, b), 10)
+        record("fr_pointwise", f"mul 3 x 2^{nloc.bit_length() - 1} by a "
+               f"row (the 2^{logn} prove's rank of {nd})", e, ms, plain_ms,
+               (2 * 3 * nloc + nloc) * 32, 3 * nloc * MONT_IMADS,
+               plain_rows=m)
+        pointwise_held.add(("mul", 3 * nloc, nloc))
+        del a, b
+        torch.cuda.empty_cache()
     # NTTPlan's powers_mont at 2^23 / 2^24 entries: blocks of 256 rows of
     # 4,096 by the row of the first 4,096 powers
     pointwise_case("mul", (256, 4096), (4096,),
@@ -1328,41 +1521,12 @@ def main() -> int:
 
     # plain field arithmetic (FieldOps: products, sums, inversions) and
     # GLV.decompose on CUDA tensors are counted while a Prover is set up
-    # and proves at 2^24 (K = 1 and 3) and while the server loads and
-    # answers; each such run fails unless it counted none
-    counted = [(FF.FieldOps, n) for n in (
-        "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
-        "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx", "from_mont",
-        "to_mont", "reduce_wide")] + [(GLVM, "decompose")]
-
-    def on_card(x):
-        if isinstance(x, torch.Tensor):
-            return x.is_cuda
-        if isinstance(x, (list, tuple)):
-            return any(on_card(y) for y in x)
-        if isinstance(x, dict):
-            return any(on_card(y) for y in x.values())
-        return False
-
+    # and proves at 2^24 (K = 1 and 3, and on a mesh) and while the server
+    # loads and answers; each such run fails unless it counted none
     @contextlib.contextmanager
     def no_plain_on_card(where):
-        calls = Counter()
-        before = {(o, n): getattr(o, n) for o, n in counted}
-
-        def counting(n, fn):
-            def run(*args, **kw):
-                if on_card(args) or on_card(kw):
-                    calls[n] += 1
-                return fn(*args, **kw)
-            return run
-
-        for (o, n), fn in before.items():
-            setattr(o, n, counting(n, fn))
-        try:
+        with plain_calls() as calls:
             yield calls
-        finally:
-            for (o, n), fn in before.items():
-                setattr(o, n, fn)
         log(f"  plain field ops / GLV.decompose on CUDA tensors during "
             f"{where}: {sum(calls.values())} {json.dumps(dict(calls))}")
         plain_on_card[where] = dict(calls)
@@ -1559,44 +1723,21 @@ def main() -> int:
             "stacked_front_s": front_s2}
         return out
 
-    # the shapes the kernels run at while a prove runs: add's launches by
-    # (G1?, lanes), the scan's by (G1?, K, lanes), the fused NTT pass's by
-    # (batch, n, lo, k, dif, pre_mul); phase 2 must have timed them
-    seen_adds, seen_scans, seen_passes = Counter(), Counter(), Counter()
-    real = {"add": fused.add, "scan_cols_packed": fused.scan_cols_packed,
-            "ntt_fused_pass": fused.ntt_fused_pass}
-
-    def logged_add(curve, p, q):
-        seen_adds[(curve is G1P, p.numel() // (coords[curve] * 8))] += 1
-        return real["add"](curve, p, q)
-
-    def logged_scan(curve, acc, cols, sign):
-        seen_scans[(curve is G1P, cols.shape[0],
-                    acc.numel() // (coords[curve] * 8))] += 1
-        return real["scan_cols_packed"](curve, acc, cols, sign)
-
-    def logged_pass(x, tw, lo_bit, nbits, dif, pre_mul=None):
-        seen_passes[(x.shape[0], x.shape[1], lo_bit, nbits, bool(dif),
-                     pre_mul is not None)] += 1
-        return real["ntt_fused_pass"](x, tw, lo_bit, nbits, dif, pre_mul)
+    # the shapes the kernels run at while a prove runs (shape_log); phase
+    # 2 must have timed them
+    seen = {}
 
     def logged_prove(*args):
-        for c_ in (seen_adds, seen_scans, seen_passes):
-            c_.clear()
-        fused.add, fused.scan_cols_packed, fused.ntt_fused_pass = (
-            logged_add, logged_scan, logged_pass)
-        try:
+        with shape_log() as now:
+            seen.clear()
+            seen.update(now)
             return prove_and_verify(*args)
-        finally:
-            fused.add, fused.scan_cols_packed, fused.ntt_fused_pass = (
-                real["add"], real["scan_cols_packed"],
-                real["ntt_fused_pass"])
 
     def check_widths(run, times):
         for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
             want = Counter({n: k * times
                             for n, k in add_launches[curve][run].items()})
-            got = Counter({n: k for (g1, n), k in seen_adds.items()
+            got = Counter({n: k for (g1, n), k in seen["add"].items()
                            if g1 == (curve is G1P)})
             if got != want:
                 raise RuntimeError(f"{run} x {times}: {tag} add widths "
@@ -1643,21 +1784,112 @@ def main() -> int:
         check_widths(f"2^{logn} slice", slices)
         want = Counter({(g1, 256, g["lanes"][cv]): slices * groups
                         for g1, cv in ((True, G1P), (False, G2P_ISO))})
-        if seen_scans != want or counts["scan_cols_packed"] != \
+        if seen["scan"] != want or counts["scan_cols_packed"] != \
                 2 * slices * groups:
-            raise RuntimeError(f"scans ran at {dict(seen_scans)}, phase 2 "
+            raise RuntimeError(f"scans ran at {dict(seen['scan'])}, phase 2 "
                                f"checked {dict(want)}")
-        if set(seen_passes) - ntt_checked or not seen_passes or \
-                sum(seen_passes.values()) != counts["ntt_fused_pass"]:
+        if set(seen["pass"]) - ntt_checked or not seen["pass"] or \
+                sum(seen["pass"].values()) != counts["ntt_fused_pass"]:
             raise RuntimeError(f"fused NTT passes ran at "
-                               f"{dict(seen_passes)}, phase 2 checked "
+                               f"{dict(seen['pass'])}, phase 2 checked "
                                f"{sorted(ntt_checked)}")
         log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
-            f"{json.dumps([list(k) + [v] for k, v in seen_passes.items()])}")
+            f"{json.dumps([list(k) + [v] for k, v in seen['pass'].items()])}")
         prep_launches(counts, slices, groups, f"the 2^{logn} prove")
         need(counts, ("add", "ntt_fused_pass") + PROVE_KERNELS,
              f"the 2^{logn} prove")
         return slices, groups
+
+    def check_rank(line, seen_, logn, nd):
+        """A rank of a sharded prove of 2^logn points over nd ranks ran
+        the segmented geometry phase 2 held for that size on its slices,
+        the cross-rank sums at the widths phase 2 timed, the four-step's
+        transforms as fused passes phase 2 held and its row products
+        (twice the diagonal twiddle, once the coset shift) at a shape
+        phase 2 held."""
+        g = geo[logn]
+        p1 = (logn + 1) // 2
+        n2 = 1 << (logn - p1)
+        four = {"n1": 1 << p1, "n2": n2, "c2": n2 // nd,
+                "local_domain": (1 << logn) // nd}
+        sl = 2 * (1 << logn) // nd // g["segment"]
+        ran = (line["size"], line["nmax"], line["segment"], line["c_bits"],
+               line["slices"], line["four_step"])
+        if ran != (nd, 1 << logn, g["segment"], g["c"], sl, four):
+            raise RuntimeError(
+                f"a rank of 2^{logn} over {nd} ran (ranks, nmax, segment, "
+                f"c, slices, four-step) {ran}; phase 2 held "
+                f"{(nd, 1 << logn, g['segment'], g['c'], sl, four)}")
+        nw = -(-GLV_BITS // g["c"])
+        for curve, rows, is_g1 in ((G1P, 4, True), (G2P_ISO, 1, False)):
+            want = Counter({n: k * sl for n, k in g["adds"][curve].items()})
+            if nd > 1:
+                want[nw * rows * nd] += (nd - 1).bit_length()
+            got = Counter({n: k for (g1, n), k in seen_["add"].items()
+                           if g1 == is_g1})
+            if got != want:
+                raise RuntimeError(f"a rank's adds ran at {dict(got)}, "
+                                   f"phase 2 timed {dict(want)}")
+        want = Counter({(g1, 256, g["lanes"][cv]): sl * g["groups"]
+                        for g1, cv in ((True, G1P), (False, G2P_ISO))})
+        if seen_["scan"] != want:
+            raise RuntimeError(f"a rank's scans ran at {dict(seen_['scan'])}"
+                               f", phase 2 held {dict(want)}")
+        if set(seen_["pass"]) - ntt_checked or not seen_["pass"] or \
+                sum(seen_["pass"].values()) != \
+                line["launches"]["ntt_fused_pass"]:
+            raise RuntimeError(f"a rank's fused NTT passes ran at "
+                               f"{dict(seen_['pass'])}, phase 2 held "
+                               f"{sorted(ntt_checked)}")
+        row = ("mul", 3 * four["local_domain"], four["local_domain"])
+        if seen_["pointwise"][row] != 3 or row not in pointwise_held:
+            raise RuntimeError(f"a rank's row products ran at "
+                               f"{dict(seen_['pointwise'])}; phase 2 held "
+                               f"{sorted(pointwise_held)}")
+
+    def sharded_ranks(nd, backend, zpath, wpath, tag, limit=900.0):
+        """nd processes of this script (--rank) proving zpath as the ranks
+        of one job over `backend`, (r_fix, s_fix); their JSON lines in
+        rank order and the wall seconds. Every process is stopped on the
+        way out; a rank that fails fails the phase."""
+        od = os.path.join(outd, tag)
+        os.makedirs(od, exist_ok=True)
+        coord = f"127.0.0.1:{free_port()}"
+        files, procs = [], []
+        t0 = time.perf_counter()
+        try:
+            for i in range(nd):
+                files.append((open(os.path.join(od, f"rank{i}.out"), "w"),
+                              open(os.path.join(od, f"rank{i}.err"), "w")))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     str(nd), str(i), coord, backend, zpath, wpath, od,
+                     str(r_fix), str(s_fix)],
+                    cwd=HERE, stdout=files[-1][0], stderr=files[-1][1]))
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or \
+                        time.perf_counter() - t0 > limit:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for fo, fe_ in files:
+                fo.close()
+                fe_.close()
+        wall = time.perf_counter() - t0
+        lines = []
+        for i, p in enumerate(procs):
+            with open(os.path.join(od, f"rank{i}.err")) as f:
+                err_tail = f.read()[-3000:]
+            if p.returncode != 0:
+                raise RuntimeError(f"{tag}: rank {i} exited {p.returncode}:"
+                                   f"\n{err_tail}")
+            with open(os.path.join(od, f"rank{i}.out")) as f:
+                lines.append(json.loads(f.read().strip().splitlines()[-1]))
+        return lines, wall
 
     # ---------------------------------------------------------- phase 4 --
     log(f"phase4: generate sqchain{1 << LOGN_BIG} on the card")
@@ -1965,7 +2197,9 @@ def main() -> int:
     seg_cold, seg_peak, prover = logged_prove(zpath, wpath, "seg_cold")
     seg_counts = dict(D.counts)
     slices, groups = check_segmented(prover, LOGN_SEG, seg_counts)
-    seg_warm, seg_peak2 = warm_prove(prover, zpath, wpath, "seg_warm")
+    seg_proof = []
+    seg_warm, seg_peak2 = warm_prove(prover, zpath, wpath, "seg_warm",
+                                     rs=(r_fix, s_fix), proof_out=seg_proof)
     rows_seg, seg_front_peak, _ = front_rows(prover, wpath)
     del rows_seg
     prover.release()
@@ -1987,6 +2221,53 @@ def main() -> int:
         "segment": prover.segment,
         "c_bits": prover.c_bits, "slices": slices, "window_groups": groups,
         "card": card}}))
+
+    # ------------------------------------------------- phase 8, sharded --
+    log(f"phase8 sharded: sqchain{1 << LOGN_SEG} on D ranks as processes "
+        "sharing this card (backend gloo: every exchange through host "
+        "memory; these times are not scaling numbers)")
+    want_json = seg_proof[0].to_json_dict()
+    shard_note = ("the ranks share one card and gloo moves every exchange "
+                  "through host memory: not a scaling number")
+    sharded = {}
+    rank_counts = {}
+    shard_runs = [(nd, "gloo") for lg, nd in SHARDED if lg == LOGN_SEG]
+    if torch.cuda.device_count() >= 2:
+        # one card a rank over NCCL; a machine with one card skips this
+        shard_runs.append((2, "nccl"))
+    torch.cuda.empty_cache()
+    for nd, backend in shard_runs:
+        tag = f"2^{LOGN_SEG} D={nd} {backend}"
+        lines, wall = sharded_ranks(nd, backend, zpath, wpath,
+                                    f"sharded_{nd}_{backend}")
+        briefs = []
+        for ln in lines:
+            if ln["proof"] != want_json:
+                raise RuntimeError(f"{tag}: rank {ln['rank']}'s proof "
+                                   "differs from the single-card proof")
+            if (ln["backend"], ln["size"]) != (backend, nd):
+                raise RuntimeError(f"{tag}: rank {ln['rank']} ran "
+                                   f"{ln['backend']} x {ln['size']}")
+            plain_on_card[f"{tag} rank {ln['rank']}"] = ln["plain_on_card"]
+            if ln["plain_on_card"]:
+                raise RuntimeError(f"{tag}: rank {ln['rank']} ran plain "
+                                   f"arithmetic on the card: "
+                                   f"{ln['plain_on_card']}")
+            seen_ = {k: Counter({tuple(e[:-1]): e[-1] for e in v})
+                     for k, v in ln["seen"].items()}
+            check_rank(ln, seen_, LOGN_SEG, nd)
+            brief = {k: v for k, v in ln.items() if k not in ("proof",
+                                                              "seen")}
+            briefs.append(brief)
+            log(json.dumps({"run": tag, "rank_line": brief,
+                            "note": shard_note if backend == "gloo" else
+                            None, "card": card}))
+        rank_counts[tag] = lines[0]["launches"]
+        sharded[tag] = {"wall_s": wall, "ranks": briefs,
+                        "proof_equals_single_card": True}
+        log(f"  {tag}: {nd} ranks proved the single-card proof's bytes in "
+            f"{wall:.1f}s wall, kernel shapes as phase 2 held them, no "
+            f"plain field op on the card")
 
     # ---------------------------------------------------------- phase 9 --
     name = f"sqchain{1 << LOGN_MAX}"
@@ -2179,6 +2460,70 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(json.dumps({f"prove_2^{LOGN_MAX}": out}))
 
+    # ------------------------------------------------- phase 9, sharded --
+    log(f"phase9 sharded: {name} on a one-rank NCCL mesh in this process "
+        "(four-step NTTs, the sharded MSMs), then through the CLI with "
+        "RSTPU_COORD / RSTPU_NPROCS=1 / RSTPU_PROC_ID=0")
+    torch.cuda.empty_cache()
+    MH.initialize(coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                  process_id=0, backend="nccl", device="cuda")
+    try:
+        mesh = MH.global_mesh("cuda")
+        mesh_peaks = {}
+        with no_plain_on_card(f"the one-rank NCCL 2^{LOGN_MAX} Prover's "
+                              "set-up and prove"), shape_log() as seen1:
+            torch.cuda.reset_peak_memory_stats()
+            zk = read_zkey(zpath)
+            sp = Prover(zk, mesh=mesh)
+            zk.close()
+            torch.cuda.synchronize()
+            mesh_setup_peak = torch.cuda.max_memory_allocated()
+            D.reset_counts()
+            proof, _ = sp.prove(read_wtns(wpath).values, r=r_fix, s=s_fix,
+                                peaks=mesh_peaks)
+            torch.cuda.synchronize()
+            nccl_counts = dict(D.counts)
+        pa = k1_proof[0]
+        if (proof.a, proof.b, proof.c) != (pa.a, pa.b, pa.c):
+            raise RuntimeError("the one-rank NCCL 2^24 proof differs from "
+                               "phase 9's warm proof")
+        need(nccl_counts, ("add", "scan_cols_packed", "ntt_fused_pass")
+             + PROVE_KERNELS, "the one-rank NCCL prove")
+        line = {**dist_prove_worker.rank_summary(sp),
+                "launches": nccl_counts}
+        check_rank(line, seen1, LOGN_MAX, 1)
+        mesh_out = {**line, "setup": dict(sp.setup_phases),
+                    "setup_peak_bytes": mesh_setup_peak,
+                    "stage_peaks": mesh_peaks,
+                    "proof_equals_phase9_warm": True}
+        log(f"  one-rank NCCL: the proof equals phase 9's warm proof; "
+            f"phases {json.dumps(sp.last_phases)} stage peaks "
+            f"{json.dumps(mesh_peaks)} set-up peak {mesh_setup_peak} B")
+        sp.release()
+        del sp
+    finally:
+        MH.shutdown()
+    torch.cuda.empty_cache()
+    rank_counts[f"2^{LOGN_MAX} one-rank NCCL"] = nccl_counts
+    proof_p = os.path.join(outd, "cli_env_knobs_proof.json")
+    pub_p = os.path.join(outd, "cli_env_knobs_public.json")
+    env = {**os.environ, "RSTPU_COORD": f"127.0.0.1:{free_port()}",
+           "RSTPU_NPROCS": "1", "RSTPU_PROC_ID": "0"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "rapidsnark_tpu_torch.cli",
+                          zpath, wpath, proof_p, pub_p], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=900)
+    cli_mesh_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"the env-knob CLI exited {res.returncode}: "
+                           f"{res.stderr[-3000:]}")
+    verify_files(zpath, proof_p, pub_p, "the env-knob CLI")
+    log(f"  the CLI with RSTPU_COORD / RSTPU_NPROCS=1 / RSTPU_PROC_ID=0: "
+        f"{cli_mesh_s:.1f}s wall, the proof pairing-verifies")
+    sharded[f"2^{LOGN_MAX} one-rank NCCL"] = mesh_out
+    sharded["cli_env_knobs_wall_s"] = cli_mesh_s
+    log(json.dumps({"sharded": sharded, "card": card}))
+
     # --------------------------------------------------------- phase 10 --
     # per kernel: source, the TPU kernel it replaces, the counts of the
     # run whose path it is on, and the checked case at that path's shape
@@ -2222,7 +2567,9 @@ def main() -> int:
             f"2^{LOGN_MAX}": max_counts,
             f"2^{LOGN_MAX} K=3 warm": out["k3"]["launches"],
             **{f"multiplier {k} parts": v["launches"]
-               for k, v in dense.items()}}
+               for k, v in dense.items()},
+            **{f"{k} rank 0" if "D=" in k else k: v
+               for k, v in rank_counts.items()}}
     log(json.dumps({"small_ntt_ms": small_ntt, "card": card}))
     kernels = []
     for name, (src, rep, counts, pick) in meta.items():
@@ -2238,6 +2585,7 @@ def main() -> int:
             "library_ms": main_case["library_ms"],
             "launches_by_run": {k: v[name] for k, v in runs.items()},
             "cases": ent["cases"]})
+    log(json.dumps({"run_s": time.perf_counter() - t_run, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -2247,4 +2595,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else main())

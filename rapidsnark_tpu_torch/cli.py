@@ -6,7 +6,17 @@ circuit has no public signals).
     python -m rapidsnark_tpu_torch.cli <circuit.zkey> <witness.wtns> \
         <proof.json> <public.json>
 
-Runs on the CUDA card.
+Runs on the CUDA card. Sharded proving rides environment knobs, as in
+the JAX package (the 4-argument contract stays as it is):
+
+    RSTPU_NPROCS / RSTPU_PROC_ID / RSTPU_COORD
+        this process is one rank of a multi-process job (every rank runs
+        this same CLI with its own output paths and writes the same
+        proof); see parallel/multihost.initialize
+    RSTPU_SHARD=1
+        one process shards over every visible card: one spawned rank a
+        card, rank 0 writing the outputs; with one card, the unsharded
+        prove
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ import json
 import sys
 from typing import Optional, Sequence
 
+from . import config
 from .ref.field import R_FR
 
 USAGE = ("Invalid number of parameters:\n"
@@ -26,7 +37,37 @@ def run_prove(zkey_path: str, wtns_path: str, proof_path: str,
               public_path: str, device="cuda",
               prover_out: Optional[list] = None) -> None:
     """Prove and write the two JSON artifacts. `prover_out`, when given,
-    receives the Prover (for its last_phases)."""
+    receives the Prover (for its last_phases) of this process."""
+    import torch
+    from . import device as D
+    from .parallel import launch, multihost as MH
+
+    if config.nprocs() or config.coordinator():
+        MH.initialize(device=device)
+        try:
+            _prove(MH.global_mesh(device), zkey_path, wtns_path, proof_path,
+                   public_path, device, prover_out)
+        finally:
+            MH.shutdown()
+    elif config.shard() and D.resolve(device).type == "cuda" and \
+            torch.cuda.device_count() > 1:
+        launch.run_ranks(_spawned_rank, torch.cuda.device_count(),
+                         zkey_path, wtns_path, proof_path, public_path,
+                         device="cuda")
+    else:
+        _prove(None, zkey_path, wtns_path, proof_path, public_path, device,
+               prover_out)
+
+
+def _spawned_rank(mesh, *paths) -> None:
+    """One rank of RSTPU_SHARD=1's job: the ranks share the output paths,
+    so rank 0 writes them."""
+    _prove(mesh, *paths, device=mesh.device, write=mesh.rank == 0)
+
+
+def _prove(mesh, zkey_path, wtns_path, proof_path, public_path, device,
+           prover_out=None, write=True) -> None:
+    """One process's prove (one rank's, with `mesh`)."""
     from .io.wtns import read_wtns
     from .io.zkey import read_zkey
     from .prover import Prover
@@ -37,11 +78,13 @@ def run_prove(zkey_path: str, wtns_path: str, proof_path: str,
     wtns = read_wtns(wtns_path)
     if wtns.prime != R_FR:
         raise ValueError("different wtns curve")      # main_prover.cpp:54
-    prover = Prover(zkey, device=device)
+    prover = Prover(zkey, device=None if mesh else device, mesh=mesh)
     zkey.close()
     proof, publics = prover.prove(wtns.values)
     if prover_out is not None:
         prover_out.append(prover)
+    if not write:
+        return
     with open(proof_path, "w") as f:
         f.write(json.dumps(proof.to_json_dict(), separators=(",", ":")))
     with open(public_path, "w") as f:

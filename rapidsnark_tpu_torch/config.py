@@ -16,6 +16,14 @@ package):
     RSTPU_NATIVE         0: the Python file reader; 1: require the native
                          reader (io/native.py; default: native when it
                          can be built)
+    RSTPU_COORD          host:port of rank 0's rendezvous, and
+    RSTPU_NPROCS         the ranks of a multi-process job, and
+    RSTPU_PROC_ID        this process's rank (parallel/multihost.py;
+                         every rank runs the same CLI)
+    RSTPU_SHARD          1: the CLI spawns one rank per visible card
+                         (default 0: one process, one card)
+    RSTPU_PROFILE        a directory: Prover.prove writes a torch.profiler
+                         trace of each prove there
 """
 
 from __future__ import annotations
@@ -68,3 +76,23 @@ def ntt_sequential(power: int) -> bool:
     if v is not None:
         return v != "0"
     return power >= 23
+
+
+def coordinator() -> Optional[str]:
+    return os.environ.get("RSTPU_COORD") or None
+
+
+def nprocs() -> Optional[int]:
+    return _int_env("RSTPU_NPROCS") or None
+
+
+def proc_id() -> Optional[int]:
+    return _int_env("RSTPU_PROC_ID")
+
+
+def shard() -> bool:
+    return os.environ.get("RSTPU_SHARD", "0") != "0"
+
+
+def profile_dir() -> Optional[str]:
+    return os.environ.get("RSTPU_PROFILE") or None

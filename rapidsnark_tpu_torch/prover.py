@@ -14,6 +14,18 @@ Counterpart of `rapidsnark_tpu/prover.py` on its single-device path:
   combine + assembly (groth16.cpp:209-246)      exact host int math
 Given the same (r, s) the proof is byte-identical to the reference's.
 
+With `mesh` (parallel/multihost.Mesh) the prove runs on every rank of a
+multi-process job, as the JAX package's does over its device mesh: each
+rank holds its contiguous 1/D slice of the point tables
+(multihost.shard_rows) and runs the MSMs on it (parallel/pmsm), the
+coefficient tables and the accumulation are replicated, and the coset
+transforms are four-step distributed NTTs (parallel/pntt) on the rank's
+1/D of the domain, or replicated whole when D does not divide the
+four-step's N1 and N2. The MSM's shard (nmax/D points) and the NTT's
+(N/D) do not line up, so the rank's h slices are gathered into the whole
+h row before each rank cuts its MSM slice of the scalar rows. r and s
+are rank 0's. Every rank returns the same proof.
+
 Past 2^21 points the MSMs run segmented (config.msm_segment, or the
 `segment` argument): the scan's working set is then a slice's. The front
 runs on packed words from end to end, so its working set is its outputs
@@ -27,6 +39,7 @@ paging, layout pinning, the chunked front) is carried over.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict, Optional, Tuple
 
@@ -38,8 +51,10 @@ from .io.zkey import ZKey
 from .ops import front as FRONT
 from .ops import msm as MSM
 from .ops.curve import G1P, G2P
-from .ops.ntt import NTTPlan, to_odd_coset
-from .ref.field import FQ_CTX, R_FR
+from .ops.ntt import NTTPlan, powers_mont, to_odd_coset
+from .parallel import multihost as MH, pmsm as PM
+from .parallel.pntt import DNTTPlan, dntt
+from .ref.field import FQ_CTX, R_FR, fr_w
 from .ref.groth16 import Proof, sample_rs
 from .utils.hostcurve import G1H, G2H
 from .utils.logger import phase
@@ -109,8 +124,18 @@ class Prover:
 
     def __init__(self, zkey: ZKey, window_bits: Optional[int] = None,
                  window_group: Optional[int] = None,
-                 segment: Optional[int] = None, device=None):
-        """The arguments win over the environment knobs (config.py)."""
+                 segment: Optional[int] = None, device=None,
+                 mesh: Optional[MH.Mesh] = None):
+        """The arguments win over the environment knobs (config.py).
+        With `mesh` the Prover is this rank's part of a sharded prove on
+        the mesh's device (`device`, when given, must be that one)."""
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and \
+                    torch.device(device) != torch.device(mesh.device):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = D.resolve(device)
         dev = self.device
         self.setup_phases: Dict[str, float] = {}
@@ -121,26 +146,40 @@ class Prover:
         self.n_c = zkey.points_c.shape[0]
         if zkey.r != R_FR:
             raise ValueError("zkey curve is not bn128")
-        self.nmax = MSM.pad_len(max(self.domain, self.n_vars))
-        self.segment = (segment if segment is not None
-                        else config.msm_segment(self.nmax))
-        if self.segment and self.nmax % self.segment:
-            self.segment = 0  # odd sizes: fall back to the whole-axis scan
+        npts = max(self.domain, self.n_vars)
+        if mesh is None:
+            self.nmax = MSM.pad_len(npts)
+            self.segment = (segment if segment is not None
+                            else config.msm_segment(self.nmax))
+            if self.segment and self.nmax % self.segment:
+                self.segment = 0  # odd sizes: the whole-axis scan
+        else:
+            # the JAX package's segment rule on the global nmax, then
+            # every rank's slice padded to whole segments
+            seg = (segment if segment is not None else
+                   config.msm_segment(PM.pad_len_sharded(npts, mesh.size)))
+            self.segment = seg if seg % MSM._CHUNK == 0 else 0
+            self.nmax = PM.pad_len_sharded(npts, mesh.size, self.segment)
         self.c_bits = (window_bits or config.window_bits()
                        or MSM.best_window_bits(self.nmax, self.segment))
         self.window_group = window_group or config.window_group()
         self.ntt_seq = config.ntt_sequential(self.power)
 
-        # point tables: packed affine (rows, nmax, A, 8), the zkey layout
+        # point tables: packed affine (rows, nmax, A, 8), the zkey layout;
+        # with a mesh the rank's nmax/D rows of each
         with self._setup_phase("table_upload"):
-            g1 = np.stack([_pad_points(zkey.points_h, self.nmax),
-                           _pad_points(zkey.points_a, self.nmax),
-                           _pad_points(zkey.points_b1, self.nmax),
-                           _pad_points(zkey.points_c, self.nmax)])
-            self.pts_g1 = _i32(g1).to(dev)                  # (4, nmax, 2, 8)
-            del g1
-            b2 = _pad_points(zkey.points_b2, self.nmax)[None]
-            b2 = _i32(b2).to(dev)                           # (1, nmax, 4, 8)
+            g1_tables = (zkey.points_h, zkey.points_a, zkey.points_b1,
+                         zkey.points_c)
+            if mesh is None:
+                g1 = np.stack([_pad_points(t, self.nmax) for t in g1_tables])
+                self.pts_g1 = _i32(g1).to(dev)              # (4, nmax, 2, 8)
+                del g1
+                b2 = _i32(_pad_points(zkey.points_b2, self.nmax)[None])
+                b2 = b2.to(dev)                             # (1, nmax, 4, 8)
+            else:
+                self.pts_g1 = torch.stack([
+                    MH.shard_rows(t, mesh, 0, self.nmax) for t in g1_tables])
+                b2 = MH.shard_rows(zkey.points_b2, mesh, 0, self.nmax)[None]
         with self._setup_phase("g2_rescale"):
             self.pts_g2 = MSM.g2_rescale_packed(b2)
             del b2
@@ -156,11 +195,35 @@ class Prover:
         with self._setup_phase("coef_binning"):
             self._bin_coefficients(zkey)
         with self._setup_phase("ntt_plan"):
-            self.ntt_arrays = NTTPlan(
-                self.power, dev,
-                keep=("fwd_tw", "inv_tw", "coset_ninv_br")).tensors()
+            self._ntt_tables()
         self.last_phases: Dict[str, float] = {}
+        self.last_trace: Optional[str] = None
+        self._traces = 0
         self.released = False
+
+    def _ntt_tables(self) -> None:
+        """The coset transforms' tables: with a mesh whose size divides
+        the four-step's N1 and N2, the distributed plan and the rank's
+        slice of the coset powers eta^k; else the whole-domain plan
+        (replicated on every rank of a mesh)."""
+        self.dntt_plan, self.dntt_arrays = None, {}
+        if self.mesh is not None:
+            try:
+                self.dntt_plan = DNTTPlan(self.power, self.mesh.size,
+                                          self.device)
+            except ValueError:
+                pass                    # tiny domain: the replicated NTT
+        if self.dntt_plan is None:
+            self.ntt_arrays = NTTPlan(
+                self.power, self.device,
+                keep=("fwd_tw", "inv_tw", "coset_ninv_br")).tensors()
+            return
+        self.dntt_arrays = self.dntt_plan.tensors()
+        nloc = self.domain // self.mesh.size
+        eta = fr_w(self.power + 1)
+        self.ntt_arrays = {"coset": powers_mont(
+            eta, nloc, pow(eta, self.mesh.rank * nloc, R_FR),
+            device=self.device)}
 
     @contextlib.contextmanager
     def _setup_phase(self, name: str):
@@ -227,6 +290,8 @@ class Prover:
         out = {"pts_g1": self.pts_g1, "pts_g2": self.pts_g2,
                "coef_s": self.coef_s, "coef_val": self.coef_val,
                "ntt": self.ntt_arrays}
+        if self.dntt_plan is not None:
+            out["dntt"] = self.dntt_arrays
         if self.spill is not None:
             out.update(zip(FRONT.SPILL_TABLES, self.spill))
             out["left_order"] = self.left_order
@@ -238,12 +303,15 @@ class Prover:
     # -- front: witness -> MSM scalar rows -----------------------------------
     def front(self, witness, tables):
         """witness (nVars, 8) int32 standard-form words -> the rows stack
-        (3, nmax, 8) [h, wit, c] of plain little-endian packed scalars."""
+        (3, nmax, 8) [h, wit, c] of plain little-endian packed scalars;
+        with a mesh the rank's (3, nmax/D, 8) slice of it."""
         ab, cvec = self._acc(witness, tables)
         polys = self._cosets(ab, cvec, tables)
         del ab, cvec          # each stage's inputs die before the next
         hp = self._h_poly(*polys)
         del polys
+        if self.dntt_plan is not None:
+            hp = self.mesh.all_gather(hp).reshape(self.domain, 8)
         return self._rows(witness, hp)
 
     def _acc(self, witness, tables):
@@ -260,7 +328,20 @@ class Prover:
     def _cosets(self, ab, cvec, tables):
         """Evaluations -> odd-coset evaluations (a2, b2, c2). With
         config.ntt_sequential a, b, c go through one at a time, never
-        stacked, so the transform's temporaries are one polynomial's."""
+        stacked, so the transform's temporaries are one polynomial's.
+        With the distributed plan: the rank's 1/D slice of each, through
+        the four-step transforms (ntt_sequential does not apply, as in
+        the JAX package)."""
+        if self.dntt_plan is not None:
+            nloc = self.domain // self.mesh.size
+            lo = self.mesh.rank * nloc
+            polys = torch.stack([ab[0, lo:lo + nloc], ab[1, lo:lo + nloc],
+                                 cvec[lo:lo + nloc]])
+            polys = dntt(polys, tables["dntt"], self.dntt_plan, self.mesh,
+                         inverse=True)
+            polys = FRONT.fr_pointwise("mul", polys, tables["ntt"]["coset"])
+            polys = dntt(polys, tables["dntt"], self.dntt_plan, self.mesh)
+            return polys[0], polys[1], polys[2]
         if self.ntt_seq:
             return tuple(to_odd_coset(v, tables["ntt"])
                          for v in (ab[0], ab[1], cvec))
@@ -272,25 +353,37 @@ class Prover:
         return FRONT.fr_pointwise("h", a2, b2, c2)
 
     def _rows(self, witness, hp):
-        rows = torch.zeros((3, self.nmax, 8), dtype=torch.int32,
+        """The scalar rows [h, wit, c] of the MSMs, zero past each
+        vector's end; with a mesh the rank's nmax/D columns of them."""
+        per = self.nmax if self.mesh is None else self.nmax // self.mesh.size
+        lo = 0 if self.mesh is None else self.mesh.rank * per
+        rows = torch.zeros((3, per, 8), dtype=torch.int32,
                            device=witness.device)
-        rows[0, :self.domain] = hp
-        rows[1, :self.n_vars] = witness
-        rows[2, :self.n_c] = witness[self.n_public + 1:]
+        for i, src in enumerate((hp, witness, witness[self.n_public + 1:])):
+            hi = min(lo + per, src.shape[0])
+            if hi > lo:
+                rows[i, :hi - lo] = src[lo:hi]
         return rows
 
     def msms(self, rows, tables, peaks=None):
-        """The five MSMs -> window totals (W, 4, 3, 8) and (W, 1, 6, 8)."""
+        """The five MSMs -> window totals (W, 4, 3, 8) and (W, 1, 6, 8);
+        with a mesh each rank's over its shard, summed over the ranks."""
         h_row, wit_row, c_row = rows[0], rows[1], rows[2]
         with self._peak("msm_g1", peaks):
             g1_sc = torch.stack([h_row, wit_row, wit_row, c_row])
-            g1w = MSM.msm(G1P, tables["pts_g1"], g1_sc, self.c_bits,
-                          self.window_group, segment=self.segment)
+            g1w = self._msm(G1P, tables["pts_g1"], g1_sc)
             del g1_sc
         with self._peak("msm_g2", peaks):
-            g2w = MSM.msm(G2P, tables["pts_g2"], wit_row[None], self.c_bits,
-                          self.window_group, segment=self.segment)
+            g2w = self._msm(G2P, tables["pts_g2"], wit_row[None])
         return g1w, g2w
+
+    def _msm(self, curve, pts, scalars):
+        if self.mesh is None:
+            return MSM.msm(curve, pts, scalars, self.c_bits,
+                           self.window_group, segment=self.segment)
+        return PM.msm_sharded(curve, pts, scalars, self.c_bits, self.mesh,
+                              self.window_group, combine=False,
+                              segment=self.segment)
 
     @contextlib.contextmanager
     def _peak(self, name: str, peaks):
@@ -311,7 +404,7 @@ class Prover:
         self.pts_g1 = self.pts_g2 = None
         self.coef_s = self.coef_val = None
         self.spill = self.left_order = self.left_seg = self.acc2_seg = None
-        self.ntt_arrays = {}
+        self.ntt_arrays, self.dntt_arrays = {}, {}
         self.released = True
 
     def _sync(self):
@@ -323,13 +416,57 @@ class Prover:
               peaks: Optional[dict] = None) -> Tuple[Proof, list]:
         """witness_words: (nVars, 8) uint32 standard-form values (the wtns
         section-2 payload). Returns (Proof, public signal ints); fills
-        last_phases with front / msms / host / total seconds, and `peaks`
-        (when given, on the card) with the device peak of the front and
-        of each MSM stage in bytes."""
+        last_phases with front / msms / host / total seconds (with a mesh
+        also each collective's seconds and calls), and `peaks` (when
+        given, on the card) with the device peak of the front and of each
+        MSM stage in bytes. With a mesh, r and s are rank 0's. With
+        RSTPU_PROFILE set, a torch.profiler trace of the prove is written
+        into that directory (last_trace names the file)."""
         if r is None:
             r = sample_rs()
         if s is None:
             s = sample_rs()
+        stats0 = None
+        if self.mesh is not None:
+            stats0 = dict(self.mesh.stats)
+            r, s = self._rank0_rs(r, s)
+        prof_dir = config.profile_dir()
+        with (self._profiled(prof_dir) if prof_dir
+              else contextlib.nullcontext()):
+            out = self._prove(witness_words, r, s, peaks)
+        if stats0 is not None:
+            for k, v in self.mesh.stats.items():
+                self.last_phases[k] = v - stats0.get(k, 0)
+        return out
+
+    def _rank0_rs(self, r: int, s: int) -> Tuple[int, int]:
+        """Rank 0's (r, s) on every rank: the blinding enters only the
+        host assembly, so every rank must assemble with the same."""
+        words = np.frombuffer(r.to_bytes(32, "little")
+                              + s.to_bytes(32, "little"), "<u4").copy()
+        got = self.mesh.broadcast(_i32(words)).cpu().numpy().view(np.uint32)
+        buf = got.tobytes()
+        return (int.from_bytes(buf[:32], "little"),
+                int.from_bytes(buf[32:], "little"))
+
+    @contextlib.contextmanager
+    def _profiled(self, out_dir: str):
+        """A torch.profiler trace (CPU, and the card's kernels on a card)
+        of the block, exported as a Chrome trace into out_dir."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield
+        os.makedirs(out_dir, exist_ok=True)
+        self._traces += 1
+        rank = 0 if self.mesh is None else self.mesh.rank
+        self.last_trace = os.path.join(
+            out_dir, f"prove_{os.getpid()}_rank{rank}_{self._traces}.json")
+        prof.export_chrome_trace(self.last_trace)
+
+    def _prove(self, witness_words, r: int, s: int, peaks):
         rs = r * s % R_FR
         t0 = time.perf_counter()
         wit = np.asarray(witness_words, dtype=np.uint32)

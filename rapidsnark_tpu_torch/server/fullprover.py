@@ -59,14 +59,16 @@ class FullProver:
     def __init__(self, zkey_files: Sequence[str], build_dir: str = "./build",
                  window_bits: Optional[int] = None, device=None,
                  witness_generator: Optional[Callable] = None,
-                 defer_load: bool = False):
+                 defer_load: bool = False, mesh=None):
         """witness_generator(circuit, input_json_path, wtns_path) overrides
         the subprocess convention (tests / non-circom deployments).
 
         `device` (None: the CUDA card, which must be present) is handed
-        to every circuit's Prover. It stands where the JAX package's
-        `mesh=` stands: a mesh of several cards comes with the multi-GPU
-        slice of the port.
+        to every circuit's Prover, and so is `mesh` (parallel/multihost.
+        Mesh, as the JAX package's `mesh=`): each Prover is then this
+        rank's part of a sharded prove, on the mesh's device. Every rank
+        of the mesh must take the same requests in the same order (the
+        port's server builds no mesh, as the JAX package's does not).
 
         defer_load=True leaves the zkey registry empty with
         status=initializing; call load() to populate it — the HTTP
@@ -79,7 +81,8 @@ class FullProver:
         self._witness_generator = witness_generator
         self._zkey_files = list(zkey_files)
         self._window_bits = window_bits
-        self._device = D.resolve(device)
+        self._device = D.resolve(device if mesh is None else mesh.device)
+        self._mesh = mesh
 
         self.provers: Dict[str, Prover] = {}
         self._pending_input = ""
@@ -106,7 +109,7 @@ class FullProver:
             if zkey.r != R_FR:
                 raise ValueError("zkey curve not supported")  # :35-37
             self.provers[name] = Prover(zkey, window_bits=self._window_bits,
-                                        device=self._device)
+                                        device=self._device, mesh=self._mesh)
             # the Prover repacked every table; release the file map now
             # (a long-lived service does not hold one map per circuit)
             zkey.close()

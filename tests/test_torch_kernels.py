@@ -1,4 +1,4 @@
-"""The ten CUDA kernels of rapidsnark_tpu_torch against their plain
+"""The CUDA kernels of rapidsnark_tpu_torch against their plain
 PyTorch versions, on the card (marker `cuda`; each test skips when no
 card is present). This file imports no JAX, so it runs on a machine
 without it:
@@ -570,3 +570,47 @@ def test_segmented_g2_msm_on_card_matches_cpu(glv):
     assert D.counts["glv_digits"] == slices
     assert D.counts["fq_scale"] == (2 if glv else 0) + slices + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sharded_msm_and_dntt_on_one_rank_nccl(tmp_path):
+    """On a one-rank NCCL group, msm_sharded gives msm's window totals and
+    dntt gives ntt's outputs, word for word (one rank adds nothing across
+    ranks; the G2 totals' map onto the iso-twist and back is exact on
+    canonical words); NCCL with two ranks on this one card is refused."""
+    dev = _dev()
+    from rapidsnark_tpu_torch.ops import msm as TM, ntt as TN
+    from rapidsnark_tpu_torch.parallel import multihost as MH, pmsm, pntt
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(RuntimeError, match="one card a rank"):
+            MH.initialize(num_processes=2, process_id=0, backend="nccl",
+                          device="cuda",
+                          init_method="file://" + str(tmp_path / "two"))
+    MH.initialize(num_processes=1, process_id=0, backend="nccl",
+                  device="cuda", init_method="file://" + str(tmp_path / "one"))
+    try:
+        mesh = MH.global_mesh("cuda")
+        assert (mesh.size, mesh.backend) == (1, "nccl")
+        n, c, G = 1024, 8, 16
+        for curve, A, seed in ((G1P, 2, 31), (G2P, 4, 32)):
+            pts = _fe(P, (2, n, A), seed, dev)
+            pts[:, ::9] = 0                            # infinity entries
+            sc = _fe(1 << 253, (2, n), seed + 10, dev)
+            want = TM.msm(curve, pts, sc, c, G, segment=512)
+            got = pmsm.msm_sharded(curve, pts, sc, c, mesh, G,
+                                   combine=False, segment=512)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        power = 12
+        x = _fe(R_FR, (3, 1 << power), 33, dev)
+        plan = pntt.DNTTPlan(power, 1, dev)
+        single = TN.NTTPlan(power, dev).tensors()
+        for inverse in (False, True):
+            got = pntt.dntt(x, plan.tensors(), plan, mesh, inverse=inverse)
+            want = TN.ntt(x, single, inverse=inverse)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        assert mesh.stats["all_to_all_calls"] == 6
+        assert mesh.stats["all_gather_calls"] == 2
+    finally:
+        MH.shutdown()
