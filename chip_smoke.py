@@ -12,12 +12,19 @@ in order; any failure exits non-zero:
      together) with each kernel's registers, stack frame and spills,
      `nvcc --version`, and per curve kernel the SASS counts of IMAD*,
      IADD3* and all instructions per Montgomery product (cuobjdump;
-     skipped with a line where it is missing);
+     skipped with a line where it is missing); fq_scale's registers and
+     spills on a line of their own;
   2. each of the twelve kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
-     and each timed with CUDA events beside the plain version and the
-     least time the card could take (bound), at every shape the paths
+     and each timed beside the plain version and the least time the card
+     could take (bound) two ways: through its Python wrapper (CUDA events
+     around back-to-back calls, the host's work included: what a caller
+     waits for) and on the device (the same calls captured in one CUDA
+     graph, a replay timed with events; torch.profiler's kernel
+     durations where a call cannot be captured; each case names its
+     method), the share of the bound from the device time; at every
+     shape the paths
      below give it: the whole-axis 2^20 prove's, the segmented 2^22 and
      2^24 proves' (a slice's scan, every width `add` is launched at with
      its launches per 2^20 prove and per slice, every fused pass over 3 x
@@ -51,7 +58,10 @@ in order; any failure exits non-zero:
      11, 13, 16 with and without GLV; fq_scale's phi on the 2^20 table
      and on a slice, a window group's bucket negation, the G2 totals'
      map back off the iso-twist, the G2 table's rescale at 2^20, 2^22,
-     2^24). `add`
+     2^24: tools/bench_fq_scale's cases; and, checked only, a slice
+     ending in a ragged block, specs mixing copies, negations and
+     products, 70,000 rows of one point, the negations on edge words).
+     `add`
      is timed
      alone (its C entry point back to back: a narrow launch takes less
      time than the wrapper's Python) and through its wrapper; each scan,
@@ -182,9 +192,6 @@ from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 132 * 64 * 1.98e9
-MONT_IMADS = 264
 LOGN_BIG = 20
 LOGN_SEG = 22       # the segmented prove
 LOGN_MAX = 24       # the production size, segmented, sequential NTTs
@@ -196,20 +203,6 @@ SHARDED = ((LOGN_SEG, 2), (LOGN_SEG, 4), (LOGN_MAX, 1))
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def bound_ms(nbytes, imads):
-    tb = nbytes / HBM_BYTES_PER_S
-    to = imads / IMAD_PER_S
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 # Montgomery products in the code of one thread of each curve kernel (one
@@ -469,9 +462,10 @@ def main() -> int:
     from rapidsnark_tpu_torch.server import http as server_http
     from rapidsnark_tpu_torch.server.__main__ import main as server_main
     from rapidsnark_tpu_torch.parallel import multihost as MH
-    from rapidsnark_tpu_torch.tools import (bench_dma_gather, bench_gather,
-                                            bench_msm_phases, dist_prove_worker,
-                                            msm_ablate, sweep_msm)
+    from rapidsnark_tpu_torch.tools import (
+        HBM_BYTES_PER_S, MONT_IMADS, bench_dma_gather, bench_fq_scale,
+        bench_gather, bench_msm_phases, bound_ms, card_line, device_time,
+        dist_prove_worker, msm_ablate, sweep_msm)
     from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
 
     t_run = time.perf_counter()
@@ -486,6 +480,7 @@ def main() -> int:
     logs = D.build(force=True)
     build_s = time.perf_counter() - t0
     log(f"phase1 build: {build_s:.2f}s for {sorted(logs)}")
+    ptxas = {}                  # kernel -> its registers and spill lines
     for src, text in logs.items():
         fn = None
         for line in text.splitlines():
@@ -493,8 +488,11 @@ def main() -> int:
             if m:
                 fn = m.group(1)
             elif "registers" in line or "spill" in line:
-                log(f"  ptxas[{src}] {fn}: "
-                    f"{line.split('ptxas info    :')[-1].strip()}")
+                info = line.split('ptxas info    :')[-1].strip()
+                log(f"  ptxas[{src}] {fn}: {info}")
+                ptxas.setdefault(fn, []).append(info)
+    fq_ptxas = [v for k, v in ptxas.items() if "k_fq_scale" in k]
+    log(f"phase1 fq_scale (k_fq_scale): {fq_ptxas}")
     nv = subprocess.run([D.nvcc(), "--version"], capture_output=True,
                         text=True, timeout=60)
     log("phase1 nvcc --version:", " | ".join(
@@ -553,6 +551,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def timed2(fn, reps):
+        """(wrapper ms, (device ms, method)) a call of fn: CUDA events
+        around reps eager calls (host work included), and reps calls
+        captured in one CUDA graph (tools.device_time; the profiler's
+        kernel durations where a call cannot be captured)."""
+        return timed(fn, reps), device_time(fn, reps)
+
     def timed_once(fn):
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -566,18 +571,23 @@ def main() -> int:
     results = {}
     failures = []
 
-    def record(name, key, e, ms, plain_ms, nbytes, imads, library_ms=None,
-               **extra):
-        """One timed case; `extra` (launches, geometry) joins its entry.
-        Returns the bound in ms."""
+    def record(name, key, e, ms, dev_t, plain_ms, nbytes, imads,
+               library_ms=None, **extra):
+        """One timed case: ms through the wrapper, dev_t = (device ms,
+        method) from timed2; the share of the bound is the device
+        time's. `extra` (launches, geometry) joins its entry. Returns the
+        bound in ms."""
         b, by = bound_ms(nbytes, imads)
+        dms, how = dev_t
         ent = results.setdefault(name, {"max_abs_err": 0, "cases": []})
         ent["max_abs_err"] = max(ent["max_abs_err"], e)
-        ent["cases"].append({"case": key, "ms": ms, "plain_ms": plain_ms,
+        ent["cases"].append({"case": key, "ms": ms, "device_ms": dms,
+                             "device_method": how, "plain_ms": plain_ms,
                              "bound_ms": b, "bound_by": by,
                              "library_ms": library_ms, **extra})
-        log(f"  {name}[{key}]: err {e} kernel {ms:.4f} ms plain "
-            f"{plain_ms} ms bound {b:.4f} ms ({by}) share {b / ms:.3f}"
+        log(f"  {name}[{key}]: err {e} kernel {ms:.4f} ms device "
+            f"{dms:.4f} ms ({how}) plain {plain_ms} ms bound {b:.4f} ms "
+            f"({by}) share {b / dms:.3f}"
             + ("" if library_ms is None else f" library {library_ms:.4f} ms")
             + "".join(f" {k} {v}" for k, v in extra.items()))
         if e != 0:
@@ -677,7 +687,7 @@ def main() -> int:
         shapes = sorted(set().union(*runs_n.values()) | {add_lanes[curve]},
                         reverse=True)
         shapes.remove(add_lanes[curve])
-        per_run = {r: [0, 0.0, 0.0, 0.0] for r in runs_n}
+        per_run = {r: [0, 0.0, 0.0, 0.0, 0.0] for r in runs_n}
         for n in [1000, add_lanes[curve]] + shapes:
             p, q = fe(P, (n, L)), fe(P, (n, L))
             want, plain_ms = timed_once(lambda: fused.add_plain(curve, p, q))
@@ -695,9 +705,9 @@ def main() -> int:
                     got.data_ptr(), n, D.stream(p))
             D.check(curve_lib.rs_add(*args), "add")
             ms = timed(lambda: curve_lib.rs_add(*args), reps)
-            call_ms = timed(lambda: fused.add(curve, p, q), reps)
+            call_ms, dev_t = timed2(lambda: fused.add(curve, p, q), reps)
             launches = {r: cnt[n] for r, cnt in runs_n.items()}
-            b = record("add", f"{tag} n={n}", e, ms, plain_ms,
+            b = record("add", f"{tag} n={n}", e, ms, dev_t, plain_ms,
                        3 * n * L * 32, n * mont_add[curve] * MONT_IMADS,
                        call_ms=call_ms, launches=launches,
                        **geometry(0, curve, n))
@@ -706,10 +716,12 @@ def main() -> int:
                 per_run[r][1] += k * ms
                 per_run[r][2] += k * b
                 per_run[r][3] += k * call_ms
-        for r, (k, t, b, c) in per_run.items():
+                per_run[r][4] += k * dev_t[0]
+        for r, (k, t, b, c, d) in per_run.items():
             log(f"  add {tag} per {r}: {k} launches {t:.4f} ms, bound "
                 f"{b:.4f} ms, launches x (ms - bound) {t - b:.4f} ms; "
-                f"through the wrapper {c:.4f} ms")
+                f"through the wrapper {c:.4f} ms; on the device {d:.4f} "
+                f"ms (launches x (device ms - bound) {d - b:.4f} ms)")
         # scan_cols_packed: K in {1, 2, 256}, signs set, some infinities
         A = L - L // 3
         for K, n in ((1, 1000), (2, 1000), (256, 1000),
@@ -729,9 +741,9 @@ def main() -> int:
             if n == 1000:
                 check_only("scan_cols_packed", f"{tag} K={K} n={n}", e)
                 continue
-            ms = timed(lambda: fused.scan_cols_packed(curve, acc, cols,
-                                                      sign), 3)
-            record("scan_cols_packed", f"{tag} K={K} n={n}", e, ms,
+            ms, dev_t = timed2(lambda: fused.scan_cols_packed(
+                curve, acc, cols, sign), 3)
+            record("scan_cols_packed", f"{tag} K={K} n={n}", e, ms, dev_t,
                    plain_ms,
                    n * L * 32 + K * n * (A * 32 + 4 + L * 32),
                    K * n * mont_mixed[curve] * MONT_IMADS,
@@ -780,8 +792,8 @@ def main() -> int:
                 if n == 1000:
                     check_only(name, f"{tag} n={n}", e)
                     continue
-                ms = timed(lambda: kern(curve, p, qq), 20)
-                record(name, f"{tag} n={n}", e, ms, plain_ms,
+                ms, dev_t = timed2(lambda: kern(curve, p, qq), 20)
+                record(name, f"{tag} n={n}", e, ms, dev_t, plain_ms,
                        n * (2 * L * 32 + qbytes),
                        n * mont_strict[curve] * MONT_IMADS,
                        **geometry(op, curve, n))
@@ -812,14 +824,14 @@ def main() -> int:
             torch.cuda.synchronize()
             e = err(got[:sub], want)
             del want, got
-            ms = timed(lambda: fused.ntt_fused_pass(x, tw, lo, k, dif,
-                                                    pmul), 10)
+            ms, dev_t = timed2(lambda: fused.ntt_fused_pass(
+                x, tw, lo, k, dif, pmul), 10)
             elems = batch * n
             nbytes = 2 * elems * 32 + (1 << (lo + k - 1)) * 32 + \
                 (n * 32 if pre else 0)
             imads = (elems // 2 * k + (elems if pre else 0)) * MONT_IMADS
-            record("ntt_fused_pass", key, e, ms, plain_ms, nbytes, imads,
-                   **extra)
+            record("ntt_fused_pass", key, e, ms, dev_t, plain_ms, nbytes,
+                   imads, **extra)
         return x, tw
 
     for logn, batch in ((LOGN_SEG, 3), (LOGN_MAX, 1)):
@@ -859,8 +871,8 @@ def main() -> int:
             x, tw, 0, fused.TAIL_BITS, dif), 10)
         log(f"  ntt_fused_pass[bits 0+{fused.TAIL_BITS} "
             f"{'dif' if dif else 'dit'}]: kernel {pass_ms:.4f} ms")
-        ms = timed(lambda: fused.ntt_tail(x, tw, dif), 10)
-        record("ntt_tail", key, err(got, want), ms, plain_ms,
+        ms, dev_t = timed2(lambda: fused.ntt_tail(x, tw, dif), 10)
+        record("ntt_tail", key, err(got, want), ms, dev_t, plain_ms,
                2 * 3 * N * 32 + 127 * 32,
                3 * N // 2 * fused.TAIL_BITS * MONT_IMADS)
     del x, tw, want, got, same
@@ -879,9 +891,10 @@ def main() -> int:
             if n == 3072:
                 check_only("ntt_butterfly", tag, e)
                 continue
-            ms = timed(lambda: fused.ntt_butterfly(lo_, hi_, tw_, dif),
-                       50 if n == 3 * 64 else 10)
-            record("ntt_butterfly", tag, e, ms, plain_ms, 5 * n * 32,
+            ms, dev_t = timed2(lambda: fused.ntt_butterfly(lo_, hi_, tw_,
+                                                           dif),
+                               50 if n == 3 * 64 else 10)
+            record("ntt_butterfly", tag, e, ms, dev_t, plain_ms, 5 * n * 32,
                    n * MONT_IMADS)
     torch.cuda.empty_cache()
 
@@ -947,7 +960,8 @@ def main() -> int:
             elems = batch * n
             key = f"{batch} x 2^{logn} whole {'dif' if dif else 'dit'}" + \
                 ("" if dif else " pre_mul")
-            record("ntt_fused_pass", key, e, ways["fused"], plain_ms,
+            record("ntt_fused_pass", key, e, ways["fused"],
+                   device_time(fn, 200), plain_ms,
                    2 * elems * 32 + n // 2 * 32 + (0 if dif else n * 32),
                    (elems // 2 * logn + (0 if dif else elems)) * MONT_IMADS,
                    launches_per_direction=len(passes),
@@ -980,10 +994,11 @@ def main() -> int:
             torch.cuda.synchronize()
             e = err(got, want)
             del want, got
-            ms = timed(lambda: fused.dma_gather(table, idx), 20)
+            ms, dev_t = timed2(lambda: fused.dma_gather(table, idx), 20)
             lib_ms = timed(lambda: torch.index_select(table, 0, idx64), 20)
             record("dma_gather", f"n=m=2^{glogn} R={R} {kind}", e, ms,
-                   plain_ms, 2 * gn * R * 4 + 4 * gn, 0, library_ms=lib_ms)
+                   dev_t, plain_ms, 2 * gn * R * 4 + 4 * gn, 0,
+                   library_ms=lib_ms)
             if (glogn, kind) == (18, "perm"):
                 got = fused.dma_gather(table, idx, blk=256, nsem=4)
                 torch.cuda.synchronize()
@@ -1064,9 +1079,11 @@ def main() -> int:
         torch.cuda.synchronize()
         e = err(got[:sub], want)
         del want
-        ms = timed(lambda: FRONT.fr_slot_acc(wit, cs, cv, spill), 10)
+        ms, dev_t = timed2(lambda: FRONT.fr_slot_acc(wit, cs, cv, spill),
+                           10)
         nbytes, sector, imads = slot_bytes(wit, cs, cv, spill)
-        record(name, key, e, ms, plain_ms, nbytes, imads, plain_rows=sub,
+        record(name, key, e, ms, dev_t, plain_ms, nbytes, imads,
+               plain_rows=sub,
                sector_ms=sector / HBM_BYTES_PER_S * 1e3, **extra)
         return got, ms
 
@@ -1127,9 +1144,9 @@ def main() -> int:
         torch.cuda.synchronize()
         e = err(got[:k], want)
         del want
-        ms = timed(lambda: FRONT.fr_pointwise(op, a, b, c), 10)
+        ms, dev_t = timed2(lambda: FRONT.fr_pointwise(op, a, b, c), 10)
         ins = {"mul": 1, "sub": 1, "h": 2}[op]
-        record("fr_pointwise", f"{op} {tag}", e, ms, plain_ms,
+        record("fr_pointwise", f"{op} {tag}", e, ms, dev_t, plain_ms,
                (n * ins + nb + n) * 32,
                n * {"mul": 1, "sub": 0, "h": 2}[op] * MONT_IMADS,
                plain_rows=sub)
@@ -1159,9 +1176,10 @@ def main() -> int:
         torch.cuda.synchronize()
         e = err(got[:1, :m], want)
         del got, want
-        ms = timed(lambda: FRONT.fr_pointwise("mul", a, b), 10)
+        ms, dev_t = timed2(lambda: FRONT.fr_pointwise("mul", a, b), 10)
         record("fr_pointwise", f"mul 3 x 2^{nloc.bit_length() - 1} by a "
-               f"row (the 2^{logn} prove's rank of {nd})", e, ms, plain_ms,
+               f"row (the 2^{logn} prove's rank of {nd})", e, ms, dev_t,
+               plain_ms,
                (2 * 3 * nloc + nloc) * 32, 3 * nloc * MONT_IMADS,
                plain_rows=m)
         pointwise_held.add(("mul", 3 * nloc, nloc))
@@ -1208,21 +1226,12 @@ def main() -> int:
         if not timed_case:
             check_only("glv_digits", tag, e)
             return
-        ms = timed(lambda: MSM.glv_digits(sc, cc, 0, nw, params, half), 20)
+        ms, dev_t = timed2(lambda: MSM.glv_digits(sc, cc, 0, nw, params,
+                                                  half), 20)
         entries = got.numel() // nw
-        record("glv_digits", tag, e, ms, plain_ms,
+        record("glv_digits", tag, e, ms, dev_t, plain_ms,
                sc.numel() // 8 * 32 + got.numel() * 8,
                entries * glv_imads if params is not None else 0)
-
-    def scale_case(tag, fn, plain, nbytes, products):
-        got = fn()
-        want, plain_ms = timed_once(plain)
-        torch.cuda.synchronize()
-        e = err(got, want)
-        del got, want
-        ms = timed(fn, 20)
-        record("fq_scale", tag, e, ms, plain_ms, nbytes,
-               products * MONT_IMADS)
 
     for grp, params in (("g1", GLVM.G1_PARAMS), ("g2", GLVM.G2_PARAMS)):
         esc = edge_w[None]
@@ -1236,8 +1245,8 @@ def main() -> int:
     for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
         seg_ = geo[logn]["segment"] if logn != LOGN_BIG else 0
         cc = geo[logn]["c"] if seg_ else c_big
-        for grp, rows_, params, A_ in (("g1", 4, GLVM.G1_PARAMS, 2),
-                                       ("g2", 1, GLVM.G2_PARAMS, 4)):
+        for grp, rows_, params in (("g1", 4, GLVM.G1_PARAMS),
+                                   ("g2", 1, GLVM.G2_PARAMS)):
             n_ = seg_ or (1 << logn)
             sc = fe_card(R_FR, (rows_, 2 * n_ if seg_ else n_))
             sc.view(-1, 8)[:edge_w.shape[0]] = edge_w
@@ -1249,50 +1258,56 @@ def main() -> int:
             digits_case(key, view, params, half, cc)
             prep[("glv_digits", logn, grp)] = key
             del sc, view
-            table = fe_card(P, (rows_, 2 * n_ if seg_ else n_, A_))
-            part = table[:, n_:] if seg_ else table
-            nx = A_ // 2
-            beta = GLVM.params_for(G1P if grp == "g1" else G2P_ISO).beta_mont
-            spec = (beta,) * nx + (None,) * nx
-            key = f"phi {grp} {rows_} x 2^{n_.bit_length() - 1}" + (
-                f" a 2^{logn} slice" if seg_ else f" the 2^{logn} table")
-            scale_case(key, lambda: MSM._phi(G1P if grp == "g1" else
-                                             G2P_ISO, part),
-                       lambda: MSM.fq_scale_plain(part, spec),
-                       2 * part.numel() * 4, rows_ * n_ * nx)
-            prep[("fq_scale", logn, grp)] = key
-            del table, part
         torch.cuda.empty_cache()
-    Mc = 1 << (c_big - 1)
-    for grp, curve, L_, op in (("g1", G1P, 3, "neg_rx"),
-                               ("g2", G2P_ISO, 6, "neg")):
-        rows_ = 4 if grp == "g1" else 1
-        Ab = fe_card(P, (G, rows_, Mc + 1, L_))
-        head = Ab[..., :Mc, :, :]
-        ext = 2 if grp == "g2" else 1
-        scale_case(f"neg {grp} {G} x {rows_} x {Mc} buckets (a view)",
-                   lambda: MSM.point_neg(curve, head),
-                   lambda: MSM.fq_scale_plain(head, (None, op, None), ext),
-                   2 * head.numel() * 4, 0)
-        del Ab, head
-    tot = fe_card(P, (-(-GLV_BITS // c_big), 1, 6))
-    iso = G2P_ISO.iso
-    scale_case("iso back 10 x 1 window totals",
-               lambda: MSM._iso_scale(G2P, tot, back=True),
-               lambda: MSM.fq_scale_plain(tot, (iso["w2i"], iso["w3i"],
-                                                None), 2),
-               2 * tot.numel() * 4, tot.shape[0] * 6)
-    for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
-        tbl = fe_card(P, (1, 1 << logn, 4))
-        spec = (iso["w2"], iso["w3"])
-        scale_case(f"rescale the 2^{logn} G2 table",
-                   lambda: MSM.g2_rescale_packed(tbl),
-                   lambda: torch.cat([MSM.fq_scale_plain(
-                       tbl[:, lo:lo + (1 << 18)], spec, 2)
-                       for lo in range(0, 1 << logn, 1 << 18)], dim=1),
-                   2 * tbl.numel() * 4, (1 << logn) * 6)
-        del tbl
+    # fq_scale at its callers' shapes (tools/bench_fq_scale.cases, the
+    # cases that tool times); the layouts its block split has to get
+    # right (a slice ending in a ragged block, specs mixing copies,
+    # negations and products, more rows than the grid's y axis holds);
+    # the negations on the edge words of the canonical and relaxed range
+    for key, tag, fn, plain, nbytes, products, inp in bench_fq_scale.cases(
+            lambda shape, mod: fe_card(mod, shape),
+            (LOGN_BIG, LOGN_SEG, LOGN_MAX)):
+        got = fn()
+        want, plain_ms = timed_once(plain)
+        torch.cuda.synchronize()
+        e = err(got, want)
+        del got, want
+        ms, dev_t = timed2(fn, 20)
+        record("fq_scale", key, e, ms, dev_t, plain_ms, nbytes,
+               products * MONT_IMADS,
+               copy_ms=device_time(inp.clone, 20)[0])
+        if tag[0] == "phi":
+            prep[("fq_scale", tag[1], tag[2])] = key
         torch.cuda.empty_cache()
+    beta1 = GLVM.params_for(G1P).beta_mont
+    edge_y = torch.from_numpy(np.array(
+        [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+         for v in (0, 1, P - 1, P, 2 * P - 1, 2 * P)],
+        dtype=np.uint32).view(np.int32)).to(dev)
+    buckets = fe_card(P, (5, 4, 33, 3))
+    buckets[0, 0, :6, 1] = edge_y
+    canon = fe_card(P, (3, 5, 6))
+    canon[0, :3, :] = edge_y[:3, None]
+    for key, t_, spec, ext in (
+            ("ragged slice 3 x 1013 of 2026", fe_card(P, (3, 2026, 4))[
+                :, 1013:], (beta1, 5, None, "neg"), 1),
+            ("mixed ext 1, 7 x 333", fe_card(P, (7, 333, 6)),
+             (beta1, "neg", None, "neg_rx", 12345, None), 1),
+            ("mixed ext 2, 5 x 77", fe_card(P, (5, 77, 6)),
+             ("neg", (beta1, 77), None), 2),
+            ("70000 rows of one point (a view)", fe_card(P, (70000, 2, 2))[
+                :, :1], ("neg", beta1), 1),
+            ("neg_rx on y in {0, 1, p-1, p, 2p-1, 2p}",
+             buckets[..., :32, :, :], (None, "neg_rx", None), 1),
+            ("neg and products on {0, 1, p-1}", canon,
+             ("neg", (beta1, 3), None), 2)):
+        got = MSM.fq_scale(t_, spec, ext)
+        torch.cuda.synchronize()
+        check_only("fq_scale", key, err(got, MSM.fq_scale_plain(
+            t_, spec, ext)))
+        del got
+    del buckets, canon, edge_y
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -1435,8 +1450,12 @@ def main() -> int:
             lo, hi = win[name]
             inside = [e for e in dev_evs if lo <= e.time_range.start < hi]
             by_name = Counter()           # names cut to 80 characters
+            port = Counter()              # the port's kernels, k_*
             for e in inside:
                 by_name[e.name[:80]] += e.time_range.end - e.time_range.start
+                m = re.search(r"\b(k_\w+)", e.name)
+                if m:
+                    port[m.group(1)] += e.time_range.end - e.time_range.start
             out[tag] = {
                 "window_ms": (hi - lo) / 1e3,
                 "kernel_launches": sum(1 for e in inside if kernel(e)),
@@ -1444,7 +1463,9 @@ def main() -> int:
                 "busy_ms": busy(lo, hi) / 1e3,
                 "busy_share": busy(lo, hi) / (hi - lo) if hi > lo else None,
                 "top_kernels_ms": {k: v / 1e3
-                                   for k, v in by_name.most_common(15)}}
+                                   for k, v in by_name.most_common(15)},
+                "port_kernels_ms": {k: v / 1e3
+                                    for k, v in port.most_common()}}
         out["post_processing_s"] = time.perf_counter() - t1
         if not dev_evs:
             log("  profiler: no device activity in the trace; the idle "
@@ -2579,7 +2600,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "rapidsnark_tpu_torch/" + src, "replaces": rep,
             "launches": counts[name], "max_abs_err": ent["max_abs_err"],
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+            "device_method": main_case["device_method"],
+            "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],

@@ -29,11 +29,24 @@
 //     the previous window, and writes the requested windows' encoded
 //     digits as int64, window-major: a warp's stores of one window are
 //     one contiguous run. Without GLV the scalar itself is recoded.
-//   * fq_scale: one thread a point; each coordinate is copied, negated
-//     (canonically, or as 2p - a for the relaxed G1 law), or multiplied
-//     by a constant passed by value (Fq, or Fq2 by the plain version's
-//     Karatsuba: a0 b0, a1 b1, (a0 + a1)(b0 + b1), canonical differences)
-//     so every word equals the plain version's.
+//   * fq_scale: one lane a point and one step a work item of the spec:
+//     a negation (canonically, or as 2p - a for the relaxed G1 law) or a
+//     product by an Fq constant of one Fq component, or an Fq2 product of
+//     one coordinate by the plain version's Karatsuba (a0 b0, a1 b1,
+//     (a0 + a1)(k0 + k1) with the constants' sum made on the host,
+//     canonical differences), so every word equals the plain version's;
+//     a copied component is no step. A warp takes a tile of 32 points of
+//     one row: its 16-byte chunks go into shared memory by cp.async and
+//     back out as 16-byte stores, lane c on the c-th chunk, so neighbouring
+//     lanes touch neighbouring addresses and every sector is used whole;
+//     the points sit 8A + 4 words apart there, so a lane's reads of its
+//     component do not conflict. Warps run on their own (only __syncwarp
+//     orders a tile's steps) over a persistent grid of tiles, each step is
+//     one op for the whole warp, no thread divides a 64-bit index, the
+//     constants come from the launch's parameters, and <= 64 registers
+//     keep 32 warps on an SM.
+#include <climits>
+
 #include "field.cuh"
 
 #define MSM_THREADS 256
@@ -164,62 +177,139 @@ k_glv_digits(const u32* __restrict__ sc, long long row_stride, long long n,
 
 // ---- fq_scale -------------------------------------------------------------
 
-#define SCALE_MAX 6  // components a point
+#define SCALE_MAX 6      // components a point
+#define SCALE_KW 72      // constant words: 6 components, 3 Fq2 sums
+#define SCALE_WARPS 4    // warps a block
+#define SCALE_WT 32      // points a warp tile: one a lane
 
-// a point's coordinates: `ext` components each (1: Fq, 2: Fq2); op[m] of
-// coordinate m: 0 copy, 1 times the constant k[m*ext ..], 2 canonical
-// negation, 3 2p - a (the relaxed law's)
+// the kinds of a work item (ops/msm.py SCALE_NEG ..); a copied component
+// is no item: the tile's loads and stores move it
+#define SC_NEG 1         // canonical p - a
+#define SC_NEG_RX 2      // 2p - a
+#define SC_MUL 3         // one component times its Fq constant
+#define SC_MUL2 4        // an Fq2 coordinate (two components) times a pair
+
+// item q of a launch: bits 6q .. 6q+2 its kind, 6q+3 .. 6q+5 its (first)
+// component. k[8j ..]: component j's constant; k[8 (6 + m) ..]: the sum
+// k0 + k1 of Fq2 coordinate m (< 2p: no carry out)
 struct ScaleSpec {
-  int ncomp, ext;
-  int op[SCALE_MAX];
-  u32 k[SCALE_MAX][8];
+  unsigned long long items;
+  int nitems;
+  u32 k[SCALE_KW];
 };
 
-__global__ void __launch_bounds__(MSM_THREADS)
-k_fq_scale(const u32* __restrict__ in, long long row_stride, long long n,
-           long long total, ScaleSpec sp, u32* __restrict__ out) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int A = sp.ncomp;
-  const u32* src = in + (t / n) * row_stride + (t % n) * A * 8;
-  u32* dst = out + t * A * 8;
-  u32 a[SCALE_MAX][8];
-#pragma unroll
-  for (int j = 0; j < SCALE_MAX; j++)
-    if (j < A) ld8(a[j], src + j * 8);
-#pragma unroll
-  for (int j = 0; j < SCALE_MAX; j++) {
-    if (j >= A) continue;
-    const int m = j / sp.ext;
-    const int op = sp.op[m];
-    u32 r[8];
-    if (op == 0) {
-      cp8(r, a[j]);
-    } else if (op == 2) {
-      f_neg<FQ_ID>(r, a[j]);
-    } else if (op == 3) {
-      f_neg_rx<FQ_ID>(r, a[j]);
-    } else if (sp.ext == 1) {
-      f_mul<FQ_ID>(r, a[j], sp.k[j]);
-    } else if (j % 2 == 0) {
-      // (a0 + a1 i)(k0 + k1 i): both components from the even one
-      const u32* k0 = sp.k[j];
-      const u32* k1 = sp.k[j + 1];
-      u32 m0[8], m1[8], s0[8], s1[8], tt[8];
-      f_mul<FQ_ID>(m0, a[j], k0);
-      f_mul<FQ_ID>(m1, a[j + 1], k1);
-      f_add_lazy(s0, a[j], a[j + 1]);
-      f_add_lazy(s1, k0, k1);
-      f_mul<FQ_ID>(tt, s0, s1);
-      f_sub<FQ_ID>(r, m0, m1);
-      f_sub<FQ_ID>(tt, tt, m0);
-      f_sub<FQ_ID>(tt, tt, m1);
-      st8(dst + (j + 1) * 8, tt);
-    } else {
-      continue;  // the odd component of a product, stored above
-    }
-    st8(dst + j * 8, r);
+// A point takes S = 8A + 4 words of shared memory: 8 lanes' 16-byte reads
+// of one component at a time (a phase) then fall on 8 distinct bank groups
+template <int A>
+struct ScaleTile {
+  static constexpr int S = 8 * A + 4;
+  static constexpr int CH = 2 * A;     // 16-byte chunks a point
+};
+
+__device__ __forceinline__ void scale_cp16(u32* smem, const u32* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+// one item on the words of its component(s) at e (shared memory)
+__device__ __forceinline__ void scale_item(u32* e, int kind, int j,
+                                           const ScaleSpec& sp) {
+  u32 a[8], r[8];
+  ld8(a, e);
+  if (kind == SC_MUL2) {
+    // (a0 + a1 i)(k0 + k1 i) = (m0 - m1) + ((a0 + a1)(k0 + k1) - m0 - m1) i
+    u32 b[8], m0[8], m1[8];
+    ld8(b, e + 8);
+    f_mul<FQ_ID>(m0, a, sp.k + 8 * j);
+    f_mul<FQ_ID>(m1, b, sp.k + 8 * (j + 1));
+    f_add_lazy(r, a, b);
+    f_mul<FQ_ID>(b, r, sp.k + 8 * (6 + j / 2));
+    f_sub<FQ_ID>(r, m0, m1);
+    f_sub<FQ_ID>(b, b, m0);
+    f_sub<FQ_ID>(b, b, m1);
+    st8(e + 8, b);
+  } else if (kind == SC_MUL) {
+    f_mul<FQ_ID>(r, a, sp.k + 8 * j);
+  } else if (kind == SC_NEG) {
+    f_neg<FQ_ID>(r, a);
+  } else {
+    f_neg_rx<FQ_ID>(r, a);
   }
+  st8(e, r);
+}
+
+// Warp tiles: tile t is the SCALE_WT points from (t % tpr) * SCALE_WT of
+// row t / tpr, taken by warps in turn (a persistent grid). A warp copies
+// its tile's 16-byte chunks into its shared memory with cp.async (lane c
+// the c-th chunk: neighbouring lanes on neighbouring addresses), runs the
+// items one after the other (lane l on point l: one op a warp at a time),
+// and stores the chunks the same way; only __syncwarp orders the steps,
+// so every warp runs on its own and the others hide its waits.
+template <int A>
+__global__ void __launch_bounds__(32 * SCALE_WARPS, 32 / SCALE_WARPS)
+k_fq_scale(const u32* __restrict__ in, long long row_stride, int n, int tpr,
+           int total, ScaleSpec sp, u32* __restrict__ out) {
+  extern __shared__ uint4 scale_smem[];
+  constexpr int S = ScaleTile<A>::S, CH = ScaleTile<A>::CH;
+  const int lane = threadIdx.x & 31;
+  u32* buf = reinterpret_cast<u32*>(scale_smem) +
+             (threadIdx.x >> 5) * SCALE_WT * S;
+  for (int t = blockIdx.x * SCALE_WARPS + (threadIdx.x >> 5); t < total;
+       t += gridDim.x * SCALE_WARPS) {
+    const int row = t / tpr, i0 = (t - row * tpr) * SCALE_WT;
+    const int valid = min(SCALE_WT, n - i0);
+    const u32* src = in + row * row_stride + (long long)i0 * (8 * A);
+    for (int c = lane; c < valid * CH; c += 32) {
+      const int pt = c / CH;
+      scale_cp16(buf + pt * S + (c - pt * CH) * 4, src + c * 4);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+    if (lane < valid) {
+      for (int q = 0; q < sp.nitems; q++) {
+        const unsigned long long code = sp.items >> (6 * q);
+        const int j = (int)((code >> 3) & 7);
+        scale_item(buf + lane * S + j * 8, (int)(code & 7), j, sp);
+      }
+    }
+    __syncwarp();
+    uint4* dst = reinterpret_cast<uint4*>(
+        out + ((long long)row * n + i0) * (8 * A));
+    for (int c = lane; c < valid * CH; c += 32) {
+      const int pt = c / CH;
+      dst[c] = *reinterpret_cast<const uint4*>(buf + pt * S +
+                                               (c - pt * CH) * 4);
+    }
+    __syncwarp();
+  }
+}
+
+template <int A>
+static int scale_launch(const u32* in, long long row_stride, int n,
+                        long long rows, const ScaleSpec& sp, u32* out,
+                        cudaStream_t stream) {
+  constexpr size_t smem =
+      (size_t)SCALE_WARPS * SCALE_WT * ScaleTile<A>::S * 4;
+  static int per_sm = 0;               // blocks an SM, from the occupancy
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      (!per_sm && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, k_fq_scale<A>, 32 * SCALE_WARPS, smem) !=
+                      cudaSuccess) ||
+      per_sm < 1)
+    return (int)cudaErrorInvalidConfiguration;
+  const long long tpr = (n + SCALE_WT - 1) / SCALE_WT;
+  const long long total = rows * tpr;
+  if (total > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long blocks = min((total + SCALE_WARPS - 1) / SCALE_WARPS,
+                               (long long)sms * per_sm);
+  k_fq_scale<A><<<(unsigned)blocks, 32 * SCALE_WARPS, smem, stream>>>(
+      in, row_stride, n, (int)tpr, (int)total, sp, out);
+  return (int)cudaGetLastError();
 }
 
 static inline unsigned msm_blocks(long long n) {
@@ -252,29 +342,36 @@ int rs_glv_digits(const void* sc, long long rows, long long row_stride,
   return (int)cudaGetLastError();
 }
 
-// ops: ncomp / ext codes; consts: ncomp x 8 words (a component's constant,
-// read for op 1). in: rows of n points of ncomp x 8 words, row b at in +
-// b * row_stride words; out contiguous.
+// items / nitems: the launch's work items (ScaleSpec); consts: SCALE_KW
+// words. in: rows of n points of ncomp x 8 words, row b at in + b *
+// row_stride words; out contiguous. Rows that lie back to back are one
+// row.
 int rs_fq_scale(const void* in, long long rows, long long row_stride,
-                long long n, int ncomp, int ext, const int* ops,
+                long long n, int ncomp, unsigned long long items, int nitems,
                 const unsigned* consts, void* out, void* stream) {
-  const long long total = rows * n;
-  if (total <= 0) return 0;
-  if (ncomp < 1 || ncomp > SCALE_MAX || (ext != 1 && ext != 2) ||
-      ncomp % ext)
+  if (rows * n <= 0) return 0;
+  if (ncomp < 1 || ncomp > SCALE_MAX || nitems < 0 || nitems > SCALE_MAX)
     return (int)cudaErrorInvalidValue;
-  ScaleSpec sp = {};
-  sp.ncomp = ncomp;
-  sp.ext = ext;
-  for (int m = 0; m < ncomp / ext; m++) {
-    if (ops[m] < 0 || ops[m] > 3) return (int)cudaErrorInvalidValue;
-    sp.op[m] = ops[m];
+  if (rows > 1 && row_stride == n * ncomp * 8) {
+    n *= rows;
+    rows = 1;
   }
-  for (int j = 0; j < ncomp; j++)
-    for (int w = 0; w < 8; w++) sp.k[j][w] = consts[8 * j + w];
-  k_fq_scale<<<msm_blocks(total), MSM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const u32*)in, row_stride, n, total, sp, (u32*)out);
-  return (int)cudaGetLastError();
+  if (n > INT_MAX) return (int)cudaErrorInvalidValue;
+  ScaleSpec sp;
+  sp.items = items;
+  sp.nitems = nitems;
+  for (int w = 0; w < SCALE_KW; w++) sp.k[w] = consts[w];
+  const u32* src = (const u32*)in;
+  u32* dst = (u32*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ncomp) {
+#define SCALE_CASE(A) \
+  case A:             \
+    return scale_launch<A>(src, row_stride, (int)n, rows, sp, dst, st);
+    SCALE_CASE(1) SCALE_CASE(2) SCALE_CASE(3) SCALE_CASE(4) SCALE_CASE(5)
+    default: SCALE_CASE(6)
+#undef SCALE_CASE
+  }
 }
 
 }  // extern "C"

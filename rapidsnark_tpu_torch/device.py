@@ -54,7 +54,8 @@ _ARGTYPES = {
     "rs_front_occupancy": [_I, _I, _VP],
     "rs_fr_pointwise": [_I, _VP, _VP, _VP, _VP, _LL, _LL, _VP],
     "rs_glv_digits": [_VP, _LL, _LL, _LL, _VP, _I, _I, _I, _I, _I, _VP, _VP],
-    "rs_fq_scale": [_VP, _LL, _LL, _LL, _I, _I, _VP, _VP, _VP, _VP],
+    "rs_fq_scale": [_VP, _LL, _LL, _LL, _I, ctypes.c_ulonglong, _I, _VP, _VP,
+                    _VP],
 }
 
 

@@ -34,7 +34,8 @@ launch, or raises. There is no fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -242,10 +243,11 @@ def group_signed_digits(scalars9, carry_bits, w0: int, G: int, c: int,
 
 def _row_layout(t: torch.Tensor, tail: tuple, name: str):
     """(rows, n, row stride in words) of a (*lead, n, *tail) int32 tensor
-    on the card whose rows of n entries are each contiguous and whose
-    leading axes merge into one stride (a slice of a contiguous tensor
-    along n qualifies); raises on anything else."""
-    if t.device.type != "cuda":
+    on the card (or the CPU, for a model of a kernel's launch) whose rows
+    of n entries are each contiguous and whose leading axes merge into
+    one stride (a slice of a contiguous tensor along n qualifies); raises
+    on anything else."""
+    if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
         raise ValueError(f"{name}: expected torch.int32, got {t.dtype}")
@@ -345,7 +347,51 @@ def glv_digits(scalars: torch.Tensor, c: int, w0: int, G: int,
     return out
 
 
-_SCALE_CODES = {None: 0, "neg": 2, "neg_rx": 3}
+# the kinds of fq_scale's work items (csrc/msm.cu SC_*); a copied
+# component is no item: the kernel's tile loads and stores move it
+SCALE_NEG, SCALE_NEG_RX, SCALE_MUL, SCALE_MUL2 = 1, 2, 3, 4
+_SCALE_KINDS = {"neg": SCALE_NEG, "neg_rx": SCALE_NEG_RX}
+SCALE_KW = 72           # constant words: 6 components, 3 Fq2 sums
+SCALE_WT = 32           # points a warp's tile (csrc SCALE_WT)
+
+
+class ScalePlan(NamedTuple):
+    """fq_scale's launch for one spec: `items` [(kind, component)], one
+    a negated or an Fq-scaled component or an Fq2-scaled coordinate (its
+    first component), none for a copy, in spec order; `code` packs them
+    6 bits each; `consts` the SCALE_KW words."""
+    items: tuple
+    code: int
+    consts: ctypes.Array
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_plan(spec: tuple, ext: int) -> ScalePlan:
+    """The plan of a spec, made once a process (the wrapper's calls reuse
+    its packed constants)."""
+    items, words = [], [0] * SCALE_KW
+    for m, op in enumerate(spec):
+        if op is None:
+            continue
+        if isinstance(op, str):
+            items += [(_SCALE_KINDS[op], m * ext + e) for e in range(ext)]
+            continue
+        vals = (op,) if ext == 1 else tuple(op)
+        items.append((SCALE_MUL if ext == 1 else SCALE_MUL2, m * ext))
+        for e, val in enumerate(vals):
+            j = m * ext + e
+            words[8 * j:8 * j + 8] = _int_words(val % _P)
+        if ext == 2:
+            words[8 * (6 + m):8 * (7 + m)] = _int_words(
+                vals[0] % _P + vals[1] % _P)
+    code = sum((kind | j << 3) << (6 * q) for q, (kind, j) in
+               enumerate(items))
+    return ScalePlan(tuple(items), code,
+                     (ctypes.c_uint32 * SCALE_KW)(*words))
+
+
+def _int_words(v: int):
+    return [(v >> (32 * w)) & 0xFFFFFFFF for w in range(8)]
 
 
 def fq_scale_plain(t, spec, ext: int = 1):
@@ -383,7 +429,8 @@ def fq_scale(t: torch.Tensor, spec, ext: int = 1) -> torch.Tensor:
         raise ValueError(f"fq_scale: {len(spec)} coordinates of {ext} "
                          f"components for points {tuple(t.shape)}")
     for op in spec:
-        if not (op in _SCALE_CODES if isinstance(op, (str, type(None)))
+        if not (op in (None, "neg", "neg_rx")
+                if isinstance(op, (str, type(None)))
                 else (isinstance(op, int) if ext == 1 else
                       isinstance(op, tuple) and len(op) == 2)):
             raise ValueError(f"fq_scale: {op!r} is no op of an ext-{ext} "
@@ -392,23 +439,11 @@ def fq_scale(t: torch.Tensor, spec, ext: int = 1) -> torch.Tensor:
         return fq_scale_plain(t, spec, ext)
     v = t if t.dim() >= 3 else t[None]
     rows, n, stride = _row_layout(v, (A, 8), "fq_scale")
-    ops = (ctypes.c_int * len(spec))()
-    consts = (ctypes.c_uint32 * (8 * A))()
-    for m, op in enumerate(spec):
-        if isinstance(op, (str, type(None))):
-            ops[m] = _SCALE_CODES[op]
-            continue
-        ops[m] = 1
-        vals = (op,) if ext == 1 else tuple(op)
-        for e, val in enumerate(vals):
-            j = (m * ext + e) * 8
-            val %= _P
-            for w in range(8):
-                consts[j + w] = (val >> (32 * w)) & 0xFFFFFFFF
+    plan = _scale_plan(tuple(spec), ext)
     out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
     rc = D.lib("msm").rs_fq_scale(
-        v.data_ptr(), rows, stride, n, A, ext, ctypes.addressof(ops),
-        ctypes.addressof(consts), out.data_ptr(), D.stream(t))
+        v.data_ptr(), rows, stride, n, A, plan.code, len(plan.items),
+        ctypes.addressof(plan.consts), out.data_ptr(), D.stream(t))
     D.check(rc, "fq_scale")
     D.count("fq_scale")
     return out

@@ -482,16 +482,42 @@ def _prep_points(shape, L, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["phi_g1", "phi_g2", "iso_fwd", "iso_back",
-                                  "neg_g1", "neg_g2", "rescale"])
+                                  "neg_g1", "neg_g2", "rescale",
+                                  "ragged_slice", "mixed_ext1", "mixed_ext2",
+                                  "rows_past_grid"])
 def test_fq_scale_kernel_matches_plain(case):
     """fq_scale through each caller at its 2^24 shapes: phi on a slice of
     the G1 (4 rows) and G2 table, the window totals to and from the
     iso-twist, the negation of a window group's bucket sums (a strided
-    view; G1 coordinates up to 2p), the table rescale."""
+    view; G1 coordinates up to 2p), the table rescale; and the layouts
+    the kernel's block split has to get right: a slice whose rows end in
+    a ragged block, specs mixing copies, negations and products, and
+    more rows than the grid's y axis holds."""
     dev = _dev()
     from rapidsnark_tpu_torch import device as D
     from rapidsnark_tpu_torch.ops import msm as TM
     seg = 1 << 19
+    if case in ("ragged_slice", "mixed_ext1", "mixed_ext2",
+                "rows_past_grid"):
+        beta = TM.GLV.params_for(G1P).beta_mont
+        t, spec, ext = {
+            "ragged_slice": lambda: (
+                _prep_points((3, 2 * 1013), 4, 78, dev)[:, 1013:],
+                (beta, 5, None, "neg"), 1),
+            "mixed_ext1": lambda: (
+                _prep_points((7, 333), 6, 79, dev),
+                (beta, "neg", None, "neg_rx", 12345, None), 1),
+            "mixed_ext2": lambda: (
+                _prep_points((5, 77), 6, 80, dev),
+                ("neg", (beta, 77), None), 2),
+            "rows_past_grid": lambda: (
+                _prep_points((70000, 2), 2, 81, dev)[:, :1],
+                ("neg", beta), 1),
+        }[case]()
+        got = TM.fq_scale(t, spec, ext)
+        torch.cuda.synchronize()
+        assert torch.equal(got, TM.fq_scale_plain(t, spec, ext))
+        return
     if case in ("phi_g1", "phi_g2"):
         g2 = case == "phi_g2"
         table = _prep_points((1 if g2 else 4, 2 * seg), 4 if g2 else 2, 70,
