@@ -25,10 +25,14 @@ in order; any failure exits non-zero:
      durations where a call cannot be captured; each case names its
      method), the share of the bound from the device time; at every
      shape the paths
-     below give it: the whole-axis 2^20 prove's, the segmented 2^22 and
-     2^24 proves' (a slice's scan, every width `add` is launched at with
-     its launches per 2^20 prove and per slice, every fused pass over 3 x
-     2^22 and over 1 x 2^24), and for dma_gather the tool's default rows
+     below give it: the whole-axis 2^20 and 2^21 proves', the segmented
+     2^22, 2^23 and 2^24 proves' (a slice's scan, every width `add` is
+     launched at with its launches per whole-axis prove and per slice,
+     every fused pass over 3 x 2^21 and 3 x 2^22 and over 1 x 2^23 and
+     1 x 2^24: top passes of 1, 2, 3 and 4 bits; a 2^23 slice has the
+     2^22 slice's shapes, which the run asserts), the front and
+     preparation kernels at 2^21 and 2^23 too, and for dma_gather the
+     tool's default rows
      and the 2^20
      prove's G1 and G2 rows, with a permutation and with repeated rows,
      beside torch.index_select (library_ms); the front kernels at the
@@ -110,7 +114,11 @@ in order; any failure exits non-zero:
      that is not JSON ending `failed`; plain field arithmetic or
      GLV.decompose on a CUDA tensor while the server loads and answers
      fails the phase (counted by a guard this script installs);
-  8. generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
+  8. generate bench_fixtures/sqchain2097152.{zkey,wtns} on the card and
+     prove it through the CLI entry point (cold) and on the loaded
+     Prover (warm): the whole-axis MSM at 2^21, its scans, adds and fused
+     passes at shapes phase 2 held, both proofs pairing-verified; then
+     generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
      through the CLI entry point with the segmented MSM (cold), then on
      the loaded Prover (warm, fixed (r, s)); the proof must
@@ -124,6 +132,19 @@ in order; any failure exits non-zero:
      product at a shape phase 2 held; each rank's JSON line (backend,
      points, slices, four-step shape, launches); with two or more cards
      also D = 2 over NCCL, a card a rank (not reached on one card);
+     then the wide 2^22 circuit (fixtures.generate(extra=2^20 - 2^16):
+     2^22 + 983,040 wires, which the Prover pads to five whole segments;
+     the run fails unless it sliced its axis) and the 2^23 sqchain
+     (slices of 2^20, sequential NTTs), each generated, proved cold and
+     warm as above and pairing-verified, the wide fixture deleted after
+     its proves; then the bench harness (python -m
+     rapidsnark_tpu_torch.bench, RSTPU_BENCH_MAX_LOGN=23,
+     RSTPU_BENCH_REPS=2, a 300 s budget) on this run's fixtures in a
+     subprocess: every line must parse, the 2^20 and 2^23 rungs and the
+     three kernel metrics must be there with no _FAILED_ line, every
+     prove line must carry a verified proof and the card, every
+     roofline_pct must be at most 100, and the last line must repeat the
+     largest prove's; its lines are printed;
   9. generate bench_fixtures/sqchain16777216.{zkey,wtns} on the card (the
      smaller fixtures are deleted first; the machine's memory and disk
      and this process's resident memory are printed), prove it through
@@ -193,8 +214,13 @@ from collections import Counter
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 LOGN_BIG = 20
+LOGN_WHOLE = 21     # the largest whole-axis prove, a 1-bit top NTT pass
 LOGN_SEG = 22       # the segmented prove
+LOGN_SEQ = 23       # segmented, sequential NTTs with a 3-bit top pass
 LOGN_MAX = 24       # the production size, segmented, sequential NTTs
+# the wide 2^22 circuit's extra wires: 2^22 + 2^20 - 2^16 points, which
+# the Prover pads to five whole segments of 2^20
+WIDE_EXTRA = (1 << 20) - (1 << 16)
 GEN_LANES = 1 << 18  # scalars per fixed-base ladder chunk (fixtures._CH)
 # the sharded proves: (log2 of the domain, ranks); 2^22 on ranks that share
 # the one card over gloo, 2^24 on a one-rank NCCL mesh
@@ -465,7 +491,7 @@ def main() -> int:
     from rapidsnark_tpu_torch.tools import (
         HBM_BYTES_PER_S, MONT_IMADS, bench_dma_gather, bench_fq_scale,
         bench_gather, bench_msm_phases, bound_ms, card_line, device_time,
-        dist_prove_worker, msm_ablate, sweep_msm)
+        dist_prove_worker, msm_ablate, scan_add_imads, sweep_msm)
     from rapidsnark_tpu_torch.utils.hostcurve import G1H, G2H
 
     t_run = time.perf_counter()
@@ -604,9 +630,23 @@ def main() -> int:
     # main-path shapes of the 2^20 prove: c = 13, G = 5, GLV 2^21 entries
     G, c = 5, 13
     M = 1 << (c - 1)
-    nb = (2 << LOGN_BIG) // 256
-    lanes = {G1P: G * 4 * nb, G2P_ISO: G * 1 * nb}
     add_lanes = {G1P: G * 4 * (M + 1), G2P_ISO: G * 1 * (M + 1)}
+
+    def whole(logn):
+        """The whole-axis prove's MSM geometry at 2^logn points (the
+        proves fail unless they ran with it): no segment, c = 13, G = 5;
+        its scans have G x rows x 2^(logn+1) / 256 lanes."""
+        if config.msm_segment(1 << logn) or \
+                MSM.best_window_bits(1 << logn) != c:
+            raise RuntimeError(f"2^{logn} points are not a whole-axis "
+                               f"c = {c} MSM")
+        nbl = (2 << logn) // 256
+        return {"nb": nbl, "c": c, "G": G,
+                "lanes": {G1P: G * 4 * nbl, G2P_ISO: G * nbl}}
+
+    wgeo = {LOGN_BIG: whole(LOGN_BIG), LOGN_WHOLE: whole(LOGN_WHOLE)}
+    lanes = wgeo[LOGN_BIG]["lanes"]
+
     def segmented(logn):
         """The segmented prove's MSM geometry at 2^logn points (phases 8
         and 9 fail unless the proves ran with it): segment, c, window
@@ -632,18 +672,28 @@ def main() -> int:
                 "lanes": {G1P: gg * 4 * (s // 256), G2P_ISO: gg * (s // 256)},
                 "adds": adds}
 
-    geo = {LOGN_SEG: segmented(LOGN_SEG), LOGN_MAX: segmented(LOGN_MAX)}
+    geo = {lg: segmented(lg) for lg in (LOGN_SEG, LOGN_SEQ, LOGN_MAX)}
     seg_lanes = geo[LOGN_SEG]["lanes"]
-    # add's widths and launches: a 2^20 prove runs _window_group on both
-    # curves once per window group; a slice of a segmented prove as above
+    # a 2^23 slice has the 2^22 slice's shapes (segment, c, G): the
+    # cases below hold both
+    same23 = {k: geo[LOGN_SEQ][k] for k in ("segment", "c", "G", "lanes")}
+    if same23 != {k: geo[LOGN_SEG][k] for k in same23}:
+        raise RuntimeError("the 2^23 slice's geometry is not the 2^22 "
+                           "slice's: give it cases of its own")
+    # add's widths and launches: a whole-axis prove runs _window_group on
+    # both curves once per window group; a slice of a segmented prove as
+    # above
     groups_big = -(-GLV_BITS // c) // G
     add_launches = {}
     for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
-        big = Counter()
-        for _ in range(groups_big):
-            big.update(add_widths(G * rows, nb, M))
+        runs_w = {}
+        for lg, wg in wgeo.items():
+            cnt = Counter()
+            for _ in range(groups_big):
+                cnt.update(add_widths(G * rows, wg["nb"], M))
+            runs_w[f"2^{lg} prove"] = cnt
         add_launches[curve] = {
-            "2^20 prove": big,
+            **runs_w,
             **{f"2^{lg} slice": g["adds"][curve] for lg, g in geo.items()}}
     # the sharded MSM's cross-rank sum: the D ranks' window totals of a
     # curve in one running-sum pass, log2(D) adds over W x rows x D lanes
@@ -655,7 +705,6 @@ def main() -> int:
                     Counter({nw * rows * nd: (nd - 1).bit_length()})
     coords = {G1P: 3, G2P_ISO: 6, G2P: 6}
     mont_add = {G1P: 17, G2P_ISO: 36}
-    mont_mixed = {G1P: 14, G2P_ISO: 33}
 
     curve_lib = D.lib("curve")
     curve_lib.rs_curve_geometry.argtypes = [
@@ -725,7 +774,9 @@ def main() -> int:
         # scan_cols_packed: K in {1, 2, 256}, signs set, some infinities
         A = L - L // 3
         for K, n in ((1, 1000), (2, 1000), (256, 1000),
-                     (256, lanes[curve]), (256, seg_lanes[curve]),
+                     (256, lanes[curve]),
+                     (256, wgeo[LOGN_WHOLE]["lanes"][curve]),
+                     (256, seg_lanes[curve]),
                      (256, geo[LOGN_MAX]["lanes"][curve])):
             acc = fe(P, (n, L))
             cols = fe(P, (K, n, A))
@@ -746,7 +797,7 @@ def main() -> int:
             record("scan_cols_packed", f"{tag} K={K} n={n}", e, ms, dev_t,
                    plain_ms,
                    n * L * 32 + K * n * (A * 32 + 4 + L * 32),
-                   K * n * mont_mixed[curve] * MONT_IMADS,
+                   K * n * scan_add_imads(tag),
                    **geometry(1, curve, n))
             del acc, cols, sign
         torch.cuda.empty_cache()
@@ -800,9 +851,10 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # NTT kernels: Fr elements. The fused passes of the 2^20 prove, then
-    # every pass of the 2^22 prove's two transforms (DIF top-down, DIT
-    # bottom-up with the coset pre-multiply on its first pass) over the
-    # 3-stack, and of the 2^24 prove's over one polynomial (sequential)
+    # every pass of the 2^21 and 2^22 proves' two transforms (DIF
+    # top-down, DIT bottom-up with the coset pre-multiply on its first
+    # pass) over the 3-stack, and of the 2^23 and 2^24 proves' over one
+    # polynomial (sequential): top passes of 1, 2, 3 and 4 bits
     ntt_checked = set()      # (batch, n, lo, k, dif, pre_mul) held here
 
     def pass_cases(logn, cases, batch=3, check_rows=None):
@@ -834,7 +886,8 @@ def main() -> int:
                    imads, **extra)
         return x, tw
 
-    for logn, batch in ((LOGN_SEG, 3), (LOGN_MAX, 1)):
+    for logn in (LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX):
+        batch = 1 if config.ntt_sequential(logn) else 3
         x, tw = pass_cases(logn,
                            [(lo, k, True, False) for lo, k in _passes(logn)] +
                            [(lo, k, False, lo == 0) for lo, k in _passes(logn)],
@@ -1116,7 +1169,8 @@ def main() -> int:
 
     for logn, K, terms in ((LOGN_BIG, 1, None), (LOGN_BIG, 3, None),
                            (LOGN_BIG, 1, 100), (LOGN_BIG, 1, (1 << 15) + 700),
-                           (LOGN_SEG, 1, None), (LOGN_MAX, 1, None),
+                           (LOGN_WHOLE, 1, None), (LOGN_SEG, 1, None),
+                           (LOGN_SEQ, 1, None), (LOGN_MAX, 1, None),
                            (LOGN_MAX, 3, None)):
         slot_case(logn, K, terms)
         torch.cuda.empty_cache()
@@ -1151,7 +1205,7 @@ def main() -> int:
                n * {"mul": 1, "sub": 0, "h": 2}[op] * MONT_IMADS,
                plain_rows=sub)
 
-    for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
+    for logn in (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX):
         nn = 1 << logn
         pointwise_case("mul", (nn,), (nn,), f"2^{logn}")
         pointwise_case("h", (nn,), (nn,), f"2^{logn}")
@@ -1192,16 +1246,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the MSM's preparation kernels. glv_digits at each prove's shapes:
-    # the 2^20 prove's whole axis (both GLV halves of the 4 G1 rows and
-    # the G2 row of 2^20 scalars), a 2^22 and a 2^24 slice (one half of
+    # the 2^20 and 2^21 proves' whole axis (both GLV halves of the 4 G1
+    # rows and the G2 row of 2^logn scalars), a 2^22, 2^23 and 2^24 slice
+    # (one half of
     # segment scalars a row, a strided view of the rows, as the segmented
     # MSM cuts them); every window at the prove's c, the edge table of
     # both groups' constants (ops/glv.edge_scalars) in front; the edge
     # table alone at c = 4, 8, 11, 13, 16 for both halves and without GLV.
-    # fq_scale at its callers' shapes: phi on the 2^20 table and on a
-    # 2^22 and 2^24 slice, a window group's bucket negation (a strided
-    # view) at c = 13, G = 5, the window totals' map back off the
-    # iso-twist, and the G2 table's rescale at 2^20, 2^22 and 2^24.
+    # fq_scale at its callers' shapes: phi on the 2^20 and 2^21 tables and
+    # on a 2^22, 2^23 and 2^24 slice, a window group's bucket negation (a
+    # strided view) at c = 13, G = 5, the window totals' map back off the
+    # iso-twist, and the G2 table's rescale at 2^20-2^24.
     # Bounds: 240 IMADs a GLV half (two 8 x 5-word products, two
     # truncated 5 x 6-word ones, a low and a high IMAD a word product),
     # 264 a Montgomery product, 3 an Fq2 product.
@@ -1242,8 +1297,8 @@ def main() -> int:
     for cc in (4, 8, 11, 13, 16):
         digits_case(f"edge table c={cc} no GLV", edge_w[None], None, None,
                     cc, timed_case=False)
-    for logn in (LOGN_BIG, LOGN_SEG, LOGN_MAX):
-        seg_ = geo[logn]["segment"] if logn != LOGN_BIG else 0
+    for logn in (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX):
+        seg_ = geo[logn]["segment"] if logn in geo else 0
         cc = geo[logn]["c"] if seg_ else c_big
         for grp, rows_, params in (("g1", 4, GLVM.G1_PARAMS),
                                    ("g2", 1, GLVM.G2_PARAMS)):
@@ -1266,7 +1321,7 @@ def main() -> int:
     # the negations on the edge words of the canonical and relaxed range
     for key, tag, fn, plain, nbytes, products, inp in bench_fq_scale.cases(
             lambda shape, mod: fe_card(mod, shape),
-            (LOGN_BIG, LOGN_SEG, LOGN_MAX)):
+            (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX)):
         got = fn()
         want, plain_ms = timed_once(plain)
         torch.cuda.synchronize()
@@ -1782,11 +1837,12 @@ def main() -> int:
             raise RuntimeError(f"{what} launched {got}, not {want}")
         log(f"  preparation kernels' launches as expected: {got}")
 
-    def check_segmented(prover, logn, counts):
-        """A segmented prove ran phase 2's geometry for 2^logn points and
-        every scan, add and fused NTT pass at a shape phase 2 held.
-        Returns (slices, window groups)."""
+    def check_segmented(prover, logn, counts, nmax=None):
+        """A segmented prove ran phase 2's geometry for a domain of 2^logn
+        (nmax points, default 2^logn) and every scan, add and fused NTT
+        pass at a shape phase 2 held. Returns (slices, window groups)."""
         g = geo[logn]
+        nmax = nmax or 1 << logn
         nwin = -(-GLV_BITS // prover.c_bits)
         groups = nwin // max(k for k in range(1, prover.window_group + 1)
                              if nwin % k == 0)
@@ -1796,12 +1852,12 @@ def main() -> int:
             f"{prover.ntt_seq} launches {json.dumps(counts)}")
         ran = (prover.nmax, prover.segment, prover.c_bits, nwin // groups,
                prover.ntt_seq)
-        if ran != (1 << logn, g["segment"], g["c"], g["G"],
+        if ran != (nmax, g["segment"], g["c"], g["G"],
                    config.ntt_sequential(logn)):
             raise RuntimeError(
                 f"the 2^{logn} prove ran (nmax, segment, c, group, "
                 f"sequential NTT) {ran}; phase 2 checked the kernels for "
-                f"{(1 << logn, g['segment'], g['c'], g['G'])}")
+                f"{(nmax, g['segment'], g['c'], g['G'])}")
         check_widths(f"2^{logn} slice", slices)
         want = Counter({(g1, 256, g["lanes"][cv]): slices * groups
                         for g1, cv in ((True, G1P), (False, G2P_ISO))})
@@ -1820,6 +1876,38 @@ def main() -> int:
         need(counts, ("add", "ntt_fused_pass") + PROVE_KERNELS,
              f"the 2^{logn} prove")
         return slices, groups
+
+    def check_whole(prover, logn, counts):
+        """A whole-axis prove ran phase 2's geometry for 2^logn points:
+        every scan, add and fused NTT pass at a shape phase 2 held.
+        Returns the window groups."""
+        w = wgeo[logn]
+        groups = -(-GLV_BITS // w["c"]) // w["G"]
+        ran = (prover.nmax, prover.segment, prover.c_bits,
+               prover.window_group, prover.ntt_seq)
+        log(f"  segment {prover.segment} nmax {prover.nmax} c_bits "
+            f"{prover.c_bits} window groups {groups} launches "
+            f"{json.dumps(counts)}")
+        if ran != (1 << logn, 0, w["c"], w["G"], config.ntt_sequential(logn)):
+            raise RuntimeError(f"the 2^{logn} prove ran (nmax, segment, c, "
+                               f"group, sequential NTT) {ran}; phase 2 "
+                               f"checked {(1 << logn, 0, w['c'], w['G'])}")
+        check_widths(f"2^{logn} prove", 1)
+        want = Counter({(g1, 256, w["lanes"][cv]): groups
+                        for g1, cv in ((True, G1P), (False, G2P_ISO))})
+        if seen["scan"] != want:
+            raise RuntimeError(f"scans ran at {dict(seen['scan'])}, phase 2 "
+                               f"checked {dict(want)}")
+        if set(seen["pass"]) - ntt_checked or not seen["pass"]:
+            raise RuntimeError(f"fused NTT passes ran at "
+                               f"{dict(seen['pass'])}, phase 2 checked "
+                               f"{sorted(ntt_checked)}")
+        log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
+            f"{json.dumps([list(k) + [v] for k, v in seen['pass'].items()])}")
+        prep_launches(counts, 1, groups, f"the 2^{logn} prove")
+        need(counts, ("add", "scan_cols_packed", "ntt_fused_pass")
+             + PROVE_KERNELS, f"the 2^{logn} prove")
+        return groups
 
     def check_rank(line, seen_, logn, nd):
         """A rank of a sharded prove of 2^logn points over nd ranks ran
@@ -2200,48 +2288,80 @@ def main() -> int:
         "warm_2^20": req_warm, "sqchain64": req_small, "card": card}}))
 
     # ---------------------------------------------------------- phase 8 --
+    def prove_size(logn, tag, extra=0, proof_out=None):
+        """Generate the 2^logn sqchain on the card (with `extra` wires,
+        the wide variant), prove it through the CLI entry point (cold)
+        and on the loaded Prover (warm, fixed (r, s), the device peak of
+        each stage; the proof appended to `proof_out` when given), each
+        proof pairing-verified and the prove's kernel shapes held to
+        phase 2's. Returns its JSON entry and the zkey and wtns paths."""
+        D.reset_counts()
+        parts = {}
+        t0 = time.perf_counter()
+        zp, wp = fixtures.generate(logn, fixdir, device="cuda", parts=parts,
+                                   extra=extra)
+        gen_s = time.perf_counter() - t0
+        gcounts = dict(D.counts)
+        log(f"  generated {os.path.basename(zp)} in {gen_s:.1f}s parts "
+            f"{json.dumps(parts)} evaluations' device peak "
+            f"{eval_peaks[-1][1]} B launches {json.dumps(gcounts)} sizes "
+            f"{os.path.getsize(zp)} / {os.path.getsize(wp)} B")
+        need(gcounts, ("add_mixed_packed", "add_mixed") + FRONT_KERNELS,
+             f"the {tag} fixture generator")
+        torch.cuda.empty_cache()
+        D.reset_counts()
+        cold, peak, prover = logged_prove(zp, wp, f"{tag}_cold")
+        counts = dict(D.counts)
+        log(f"  {tag} Prover: n_vars {prover.n_vars} domain {prover.domain} "
+            f"nmax {prover.nmax} segment {prover.segment} c "
+            f"{prover.c_bits}")
+        if logn in geo:
+            seg_ = geo[logn]["segment"]
+            want_nmax = -(-max(prover.domain, prover.n_vars) // seg_) * seg_
+            if not prover.segment or prover.nmax % prover.segment:
+                raise RuntimeError(f"the {tag} Prover did not slice its "
+                                   f"axis: nmax {prover.nmax}, segment "
+                                   f"{prover.segment}")
+            slices, groups = check_segmented(prover, logn, counts,
+                                             nmax=want_nmax)
+        else:
+            slices, groups = 1, check_whole(prover, logn, counts)
+        peaks = {}
+        warm, _ = warm_prove(prover, zp, wp, f"{tag}_warm", peaks=peaks,
+                             rs=(r_fix, s_fix), proof_out=proof_out)
+        out = {"cold": cold, "warm": warm, "cli_wall_s": walls[f"{tag}_cold"],
+               "setup": dict(prover.setup_phases),
+               "peak_mem_bytes": {"cli_cold": peak, **{
+                   f"warm_{k}": v for k, v in peaks.items()}},
+               "fixture_gen_s": gen_s, "fixture_gen_parts": parts,
+               "n_vars": prover.n_vars, "domain": prover.domain,
+               "nmax": prover.nmax, "segment": prover.segment,
+               "c_bits": prover.c_bits, "slices": slices,
+               "window_groups": groups, "ntt_sequential": prover.ntt_seq,
+               "launches": counts, "generator_launches": gcounts,
+               "card": card}
+        prover.release()
+        torch.cuda.empty_cache()
+        return out, zp, wp
+
+    log(f"phase8: generate sqchain{1 << LOGN_WHOLE} on the card (the "
+        "whole-axis MSM, a 1-bit top NTT pass)")
+    whole_out, _, _ = prove_size(LOGN_WHOLE, "whole")
+    log(json.dumps({f"prove_2^{LOGN_WHOLE}": whole_out}))
+
     log(f"phase8: generate sqchain{1 << LOGN_SEG} on the card")
-    D.reset_counts()
-    t0 = time.perf_counter()
-    seg_parts = {}
-    zpath, wpath = fixtures.generate(LOGN_SEG, fixdir, device="cuda",
-                                     parts=seg_parts)
-    gen_seg_s = time.perf_counter() - t0
-    gen_counts = dict(D.counts)
-    log(f"  generated in {gen_seg_s:.1f}s parts {json.dumps(seg_parts)} "
-        f"evaluations' device peak {eval_peaks[-1][1]} B "
-        f"launches {json.dumps(gen_counts)} "
-        f"sha256 {json.dumps(sha256s(zpath, wpath))}")
-    need(gen_counts, ("add_mixed_packed", "add_mixed") + FRONT_KERNELS,
-         f"the 2^{LOGN_SEG} fixture generator")
-    D.reset_counts()
-    seg_cold, seg_peak, prover = logged_prove(zpath, wpath, "seg_cold")
-    seg_counts = dict(D.counts)
-    slices, groups = check_segmented(prover, LOGN_SEG, seg_counts)
     seg_proof = []
-    seg_warm, seg_peak2 = warm_prove(prover, zpath, wpath, "seg_warm",
-                                     rs=(r_fix, s_fix), proof_out=seg_proof)
-    rows_seg, seg_front_peak, _ = front_rows(prover, wpath)
-    del rows_seg
-    prover.release()
+    seg_out, zpath, wpath = prove_size(LOGN_SEG, "seg", proof_out=seg_proof)
+    gen_counts, seg_counts = seg_out["generator_launches"], seg_out["launches"]
     # the kernels' share of the segmented MSMs, from this run's times at
     # the slice's shapes: one G1 and one G2 scan per slice per group
-    def case_ms(name, key):
-        return next(c["ms"] for c in results[name]["cases"]
-                    if c["case"] == key)
-    scan_s = slices * groups * 1e-3 * (
-        case_ms("scan_cols_packed", f"g1 K=256 n={seg_lanes[G1P]}") +
-        case_ms("scan_cols_packed", f"g2 K=256 n={seg_lanes[G2P_ISO]}"))
-    log(json.dumps({f"prove_2^{LOGN_SEG}": {
-        "cold": seg_cold, "warm": seg_warm, "setup": prover.setup_phases,
-        "msms_scan_kernel_s": scan_s,
-        "msms_other_s": seg_warm["msms"] - scan_s,
-        "peak_mem_bytes": max(seg_peak, seg_peak2),
-        "front_peak_mem_bytes": seg_front_peak,
-        "fixture_gen_s": gen_seg_s, "fixture_gen_parts": seg_parts,
-        "segment": prover.segment,
-        "c_bits": prover.c_bits, "slices": slices, "window_groups": groups,
-        "card": card}}))
+    scan_s = seg_out["slices"] * seg_out["window_groups"] * 1e-3 * sum(
+        next(cs["ms"] for cs in results["scan_cols_packed"]["cases"]
+             if cs["case"] == f"{tag} K=256 n={seg_lanes[cv]}")
+        for tag, cv in (("g1", G1P), ("g2", G2P_ISO)))
+    seg_out.update(msms_scan_kernel_s=scan_s,
+                   msms_other_s=seg_out["warm"]["msms"] - scan_s)
+    log(json.dumps({f"prove_2^{LOGN_SEG}": seg_out}))
 
     # ------------------------------------------------- phase 8, sharded --
     log(f"phase8 sharded: sqchain{1 << LOGN_SEG} on D ranks as processes "
@@ -2289,6 +2409,70 @@ def main() -> int:
         log(f"  {tag}: {nd} ranks proved the single-card proof's bytes in "
             f"{wall:.1f}s wall, kernel shapes as phase 2 held them, no "
             f"plain field op on the card")
+
+    # ------------------------------------------- phase 8, wide and 2^23 --
+    log(f"phase8 wide: sqchainw{1 << LOGN_SEG} on the card ({WIDE_EXTRA} "
+        "more wires than the domain: the Prover pads its axis to whole "
+        "segments)")
+    wide_out, zp, wp = prove_size(LOGN_SEG, "wide", extra=WIDE_EXTRA)
+    for f in (zp, wp):
+        os.remove(f)
+    log(json.dumps({f"prove_2^{LOGN_SEG}_wide": wide_out}))
+    log(f"phase8: generate sqchain{1 << LOGN_SEQ} on the card (slices of "
+        "2^20, sequential NTTs with a 3-bit top pass)")
+    seq_out, _, _ = prove_size(LOGN_SEQ, "seq")
+    log(json.dumps({f"prove_2^{LOGN_SEQ}": seq_out}))
+
+    # ------------------------------------------------ phase 8, harness --
+    log(f"phase8 harness: python -m rapidsnark_tpu_torch.bench on this "
+        f"run's fixtures (2^{LOGN_BIG}-2^{LOGN_SEQ})")
+    torch.cuda.empty_cache()
+    bench_env = {**os.environ, "RSTPU_BENCH_MAX_LOGN": str(LOGN_SEQ),
+                 "RSTPU_BENCH_REPS": "2", "RSTPU_BENCH_BUDGET_S": "300"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "rapidsnark_tpu_torch.bench"],
+                         cwd=HERE, env=bench_env, capture_output=True,
+                         text=True, timeout=900)
+    bench_s = time.perf_counter() - t0
+    for ext, text in (("out", res.stdout), ("err", res.stderr)):
+        with open(os.path.join(outd, f"bench.{ext}"), "w") as f:
+            f.write(text)
+    blines = [json.loads(x) for x in res.stdout.splitlines() if x.strip()]
+    for x in blines:
+        log("  bench:", json.dumps(x))
+    if res.returncode or not blines:
+        raise RuntimeError(f"the harness exited {res.returncode}: "
+                           f"{res.stderr[-3000:]}")
+    bad = [x["metric"] for x in blines
+           if "FAILED" in x["metric"] or "CRASHED" in x["metric"]]
+    proves = {int(x["metric"].rsplit("^", 1)[1]): x for x in blines[:-1]
+              if x["metric"].startswith("groth16_prove_latency_2^")}
+    kern = {x["metric"].split("_per_sec")[0]: x for x in blines
+            if "_per_sec_2^" in x["metric"]}
+    if bad or not {LOGN_BIG, LOGN_SEQ} <= set(proves) or \
+            set(kern) != {"g1_msm_points", "g2_msm_points",
+                          "ntt_butterflies"}:
+        raise RuntimeError(f"the harness failed {bad}, proved "
+                           f"{sorted(proves)}, measured {sorted(kern)}")
+    if blines[-1] != proves[max(proves)]:
+        raise RuntimeError("the harness's last line is not its largest "
+                           "prove's")
+    for ln_, x in proves.items():
+        ex = x["extra"]
+        if ex.get("verified") is not True or \
+                ex["device"].get("platform") != "gpu" or \
+                not ex["device"].get("power_limit"):
+            raise RuntimeError(f"the harness's 2^{ln_} line lacks a "
+                               f"verified proof or the card: {ex}")
+    for name, x in kern.items():
+        if not 0 < x["extra"]["roofline_pct"] <= 100:
+            raise RuntimeError(f"{name}: roofline_pct "
+                               f"{x['extra']['roofline_pct']}")
+    harness = {"wall_s": bench_s, "proves": sorted(proves),
+               "skipped": [x["metric"] for x in blines
+                           if "SKIPPED" in x["metric"]],
+               "lines": len(blines)}
+    log(json.dumps({"harness": harness, "card": card}))
 
     # ---------------------------------------------------------- phase 9 --
     name = f"sqchain{1 << LOGN_MAX}"
@@ -2582,8 +2766,13 @@ def main() -> int:
             "gather tools": tool_counts,
             f"server 2^{LOGN_BIG} request": server_counts,
             "server sqchain64 request": server_small_counts,
+            f"2^{LOGN_WHOLE} generator": whole_out["generator_launches"],
+            f"2^{LOGN_WHOLE}": whole_out["launches"],
             f"2^{LOGN_SEG} generator": gen_counts,
             f"2^{LOGN_SEG}": seg_counts,
+            f"2^{LOGN_SEG} wide": wide_out["launches"],
+            f"2^{LOGN_SEQ} generator": seq_out["generator_launches"],
+            f"2^{LOGN_SEQ}": seq_out["launches"],
             f"2^{LOGN_MAX} generator": max_gen_counts,
             f"2^{LOGN_MAX}": max_counts,
             f"2^{LOGN_MAX} K=3 warm": out["k3"]["launches"],

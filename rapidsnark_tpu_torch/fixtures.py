@@ -20,10 +20,13 @@ points are unique), fast enough for 2^24 constraints:
   * batch inversion of the z coordinates and affine packing as torch ops;
   * the zkey written section by section from word and record arrays.
 
-    python -m rapidsnark_tpu_torch.fixtures [log2_domain] [outdir]
+    python -m rapidsnark_tpu_torch.fixtures [log2_domain] [outdir] [--extra N]
 
 writes sqchain<2^log2>.{zkey,wtns} (default 2^14, bench_fixtures/) and
-prints the seconds of each part (fast_setup's `parts`) as JSON.
+prints the seconds of each part (fast_setup's `parts`) as JSON. With
+`--extra N` (even) it writes the wide variant sqchainw<2^log2>.* instead:
+the same chain and domain with N more private wires (sqchain_wide_coo),
+so the MSMs run over 2^log2 + N points.
 """
 
 from __future__ import annotations
@@ -123,6 +126,53 @@ def sqchain_coo(n_steps: int) -> CooR1CS:
     s = np.concatenate([cur, cur, c_s])
     v = np.concatenate([ones, ones, c_v])
     return CooR1CS(n_steps + 2, 1, n_steps, m, kk, s, v)
+
+
+def sqchain_wide_coo(n_steps: int, extra: int) -> CooR1CS:
+    """sqchain_coo(n_steps) with `extra` (even) more private wires,
+    n_steps + 2 onwards, that enter the C rows in pairs: pair j puts +1 at
+    its first wire and -1 at its second in row j % n_steps. The witness
+    gives both wires of a pair one value (wide_witness), so the pair
+    cancels in value and every constraint holds. Each extra wire's c(tau)
+    is +-L_k(tau), so it has a real point in the C table, and infinity in
+    A and B; the domain stays the chain's."""
+    if extra < 0 or extra % 2:
+        raise ValueError(f"sqchain_wide_coo: extra = {extra} is not an "
+                         "even count")
+    base = sqchain_coo(n_steps)
+    if not extra:
+        return base
+    pair = np.arange(extra // 2, dtype=np.int64)
+    first = n_steps + 2 + 2 * pair
+    neg_one = np.zeros((extra // 2, 8), np.uint32)
+    neg_one[:] = ints_to_words([R_FR - 1])[0]
+    c_at = int(np.searchsorted(base.m, 2))
+    k = np.concatenate([base.k[c_at:], np.repeat(pair % n_steps, 2)])
+    s = np.concatenate([base.s[c_at:],
+                        np.stack([first, first + 1], axis=1).reshape(-1)])
+    v = np.concatenate([base.value[c_at:], np.stack(
+        [_words_of_small(np.ones(extra // 2, np.uint32)), neg_one],
+        axis=1).reshape(-1, 8)])
+    order = np.lexsort((s, k))
+    return CooR1CS(
+        base.n_vars + extra, base.n_public, n_steps,
+        np.concatenate([base.m[:c_at], np.full(k.shape[0], 2, np.int64)]),
+        np.concatenate([base.k[:c_at], k[order]]),
+        np.concatenate([base.s[:c_at], s[order]]),
+        np.concatenate([base.value[:c_at], v[order]]))
+
+
+def wide_witness(n_steps: int, x0: int, extra: int, seed: int) -> list:
+    """The witness of sqchain_wide_coo: the chain's (ref/setup
+    sqchain_witness), then each pair's value twice; the values are
+    residues below r drawn from numpy.random.RandomState(seed)."""
+    w = np.random.RandomState(seed).randint(
+        0, 1 << 32, size=(extra // 2, 8), dtype=np.uint64)
+    w[:, 7] %= R_FR >> 224
+    vals = [int.from_bytes(row.astype("<u4").tobytes(), "little")
+            for row in w]
+    return S.sqchain_witness(n_steps, x0) + [v for v in vals
+                                             for _ in range(2)]
 
 
 def _with_public_rows(coo: CooR1CS) -> CooR1CS:
@@ -434,11 +484,14 @@ def fast_setup(coo: CooR1CS, seed: str = "rapidsnark-tpu-test",
                     coefs=coefs, **vk, **tables)
 
 
-def generate(logn: int, outdir: str, device=None, parts=None):
+def generate(logn: int, outdir: str, device=None, parts=None,
+             extra: int = 0):
     """Write sqchain<2^logn>.{zkey,wtns} (seed bench-<logn>, witness
     x0 = 3) into outdir; returns (zkey_path, wtns_path). `parts`, when
     given, receives the seconds of each part (fast_setup's, then
-    write_zkey and witness)."""
+    write_zkey and witness). With `extra` wires, the wide variant
+    sqchainw<2^logn>.* (sqchain_wide_coo, seed bench-<logn>-w<extra>,
+    the pairs' values drawn from RandomState(logn))."""
     from .io.wtns import write_wtns
     from .io.zkey import write_zkey
 
@@ -446,28 +499,37 @@ def generate(logn: int, outdir: str, device=None, parts=None):
     parts = {} if parts is None else parts
     os.makedirs(outdir, exist_ok=True)
     steps = (1 << logn) - 2  # domain = next_pow2(steps + 2) = 2^logn
-    zk = fast_setup(sqchain_coo(steps), seed=f"bench-{logn}", device=dev,
-                    parts=parts)
-    name = f"sqchain{1 << logn}"
+    coo, seed = sqchain_coo(steps), f"bench-{logn}"
+    if extra:
+        coo, seed = sqchain_wide_coo(steps, extra), f"{seed}-w{extra}"
+    zk = fast_setup(coo, seed=seed, device=dev, parts=parts)
+    del coo
+    name = f"sqchain{'w' if extra else ''}{1 << logn}"
     zpath = os.path.join(outdir, f"{name}.zkey")
     wpath = os.path.join(outdir, f"{name}.wtns")
     with _part("write_zkey", parts, dev):
         write_zkey(zpath, zk)
     del zk
     with _part("witness", parts, dev):
-        write_wtns(wpath, S.sqchain_witness(steps, 3))
+        write_wtns(wpath, wide_witness(steps, 3, extra, logn) if extra
+                   else S.sqchain_witness(steps, 3))
     return zpath, wpath
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    extra = 0
+    if "--extra" in argv:
+        at = argv.index("--extra")
+        extra = int(argv[at + 1])
+        del argv[at:at + 2]
     logn = int(argv[0]) if argv else 14
     outdir = argv[1] if len(argv) > 1 else os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "bench_fixtures")
     t0 = time.time()
     parts = {}
-    zpath, _ = generate(logn, outdir, parts=parts)
+    zpath, _ = generate(logn, outdir, parts=parts, extra=extra)
     print(f"{os.path.basename(zpath)}: {time.time() - t0:.1f}s "
           f"{json.dumps(parts)}", flush=True)
     return 0

@@ -27,7 +27,8 @@ h row before each rank cuts its MSM slice of the scalar rows. r and s
 are rank 0's. Every rank returns the same proof.
 
 Past 2^21 points the MSMs run segmented (config.msm_segment, or the
-`segment` argument): the scan's working set is then a slice's. The front
+`segment` argument), the point axis padded to whole segments: the scan's
+working set is then a slice's, whatever the wire count. The front
 runs on packed words from end to end, so its working set is its outputs
 and the resident tables whatever the slots per row (K). An H100's 80 GB
 hold the tables, the front and the MSMs of a 2^24 prove (`prove(peaks=)`
@@ -147,19 +148,17 @@ class Prover:
         if zkey.r != R_FR:
             raise ValueError("zkey curve is not bn128")
         npts = max(self.domain, self.n_vars)
-        if mesh is None:
-            self.nmax = MSM.pad_len(npts)
-            self.segment = (segment if segment is not None
-                            else config.msm_segment(self.nmax))
-            if self.segment and self.nmax % self.segment:
-                self.segment = 0  # odd sizes: the whole-axis scan
-        else:
-            # the JAX package's segment rule on the global nmax, then
-            # every rank's slice padded to whole segments
-            seg = (segment if segment is not None else
-                   config.msm_segment(PM.pad_len_sharded(npts, mesh.size)))
-            self.segment = seg if seg % MSM._CHUNK == 0 else 0
-            self.nmax = PM.pad_len_sharded(npts, mesh.size, self.segment)
+        # the JAX package's segment rule on the padded point count, then
+        # the axis (with a mesh, every rank's slice of it) padded to whole
+        # segments with (0, 0) points and zero scalars, so a circuit with
+        # more wires than its domain is sliced too (the JAX package scans
+        # its whole axis there); a segment that is not a multiple of the
+        # scan chunk falls back to the whole-axis scan
+        ranks = 1 if mesh is None else mesh.size
+        seg = (segment if segment is not None else
+               config.msm_segment(PM.pad_len_sharded(npts, ranks)))
+        self.segment = seg if seg % MSM._CHUNK == 0 else 0
+        self.nmax = PM.pad_len_sharded(npts, ranks, self.segment)
         self.c_bits = (window_bits or config.window_bits()
                        or MSM.best_window_bits(self.nmax, self.segment))
         self.window_group = window_group or config.window_group()

@@ -17,6 +17,14 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 MONT_IMADS = 264
 
 
+def scan_add_imads(curve: str) -> int:
+    """The multiply-adds of one mixed add of the MSM's prefix scan on
+    "g1" (14 Montgomery products, the relaxed law) or "g2" (33, the
+    iso-twist's law, an Fq2 product counted as three): the count behind
+    scan_cols_packed's bound and the MSM metrics' roofline (bench.py)."""
+    return {"g1": 14, "g2": 33}[curve] * MONT_IMADS
+
+
 def bound_ms(nbytes, imads):
     """(ms, "bytes" or "operations"): the least time the card could take
     for work that moves nbytes and runs imads multiply-adds."""

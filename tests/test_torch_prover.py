@@ -89,15 +89,17 @@ def test_segmented_proof_byte_identical(monkeypatch):
     the GLV entry axis, the second on phi images): the proof equals the
     unsegmented port's and the JAX package's Prover(segment=256), byte
     for byte; the arguments win over the environment and a segment that
-    does not divide the padded length falls back to the whole axis."""
+    is not a multiple of the scan's 256-column chunk falls back to the
+    whole axis (a slice of 128 or 192 entries cannot be scanned)."""
     zk, wt = _load("sqchain64")
-    monkeypatch.setenv("RSTPU_MSM_SEGMENT", "128")
+    monkeypatch.setenv("RSTPU_MSM_SEGMENT", "512")
     monkeypatch.setenv("RSTPU_WINDOW_GROUP", "3")
     seg = Prover(zk, window_bits=4, window_group=8, segment=256,
                  device="cpu")
     assert (seg.segment, seg.window_group, seg.nmax) == (256, 8, 256)
-    assert Prover(zk, window_bits=4, device="cpu").segment == 128
+    assert Prover(zk, window_bits=4, device="cpu").segment == 512
     assert Prover(zk, window_bits=4, segment=192, device="cpu").segment == 0
+    assert Prover(zk, window_bits=4, segment=128, device="cpu").segment == 0
     whole = Prover(zk, window_bits=4, window_group=8, segment=0,
                    device="cpu")
     assert (whole.segment, whole.window_group) == (0, 8)
