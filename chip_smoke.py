@@ -24,18 +24,20 @@ in order; any failure exits non-zero:
      graph, a replay timed with events; torch.profiler's kernel
      durations where a call cannot be captured; each case names its
      method), the share of the bound from the device time; at every
-     shape the paths
-     below give it: the whole-axis 2^20 and 2^21 proves', the segmented
-     2^22, 2^23 and 2^24 proves' (a slice's scan, every width `add` is
-     launched at with its launches per whole-axis prove and per slice,
-     every fused pass over 3 x 2^21 and 3 x 2^22 and over 1 x 2^23 and
-     1 x 2^24: top passes of 1, 2, 3 and 4 bits; a 2^23 slice has the
-     2^22 slice's shapes, which the run asserts), the front and
-     preparation kernels at 2^21 and 2^23 too, and for dma_gather the
-     tool's default rows
-     and the 2^20
-     prove's G1 and G2 rows, with a permutation and with repeated rows,
-     beside torch.index_select (library_ms); the front kernels at the
+     shape the paths below give it. The MSM geometry of each prove
+     (2^20-2^24, the wide 2^22 circuit, a rank of 2^22 over D = 2 and 4
+     sharing the card) is config.msm_plan's for its axis and this card's
+     memory, and the 2^22, 2^23 and 2^24 proves' also the JAX package's
+     (segments 2^20 / 2^20 / 2^19, c = 13, G = 5); the run prints each
+     and a prove fails unless it ran
+     its own: a slice's scans, every width `add` is launched at with its
+     launches per slice (a whole axis is one slice), every fused pass
+     over 3 x 2^21 and 3 x 2^22 and over 1 x 2^23 and 1 x 2^24: top
+     passes of 1, 2, 3 and 4 bits), the front and preparation kernels at
+     2^21 and 2^23 too, and for dma_gather the tool's default rows and
+     the 2^20 prove's G1 and G2 rows, with a permutation and with
+     repeated rows, beside torch.index_select (library_ms, device ms as
+     the kernel's; its wrapper ms too); the front kernels at the
      2^20, 2^22 and 2^24 proves' shapes (fr_slot_acc with K = 1 and 3
      slots a row and random witness indices, and at 2^20 with a spilled
      row of 100 and one of 2^15 + 700 terms; fr_pointwise's products,
@@ -56,13 +58,13 @@ in order; any failure exits non-zero:
      against the per-layer plain version and timed beside the per-layer
      kernels (RSTPU_NTT_FUSE=0), and a (3, 128) to_odd_coset and a
      128-point inverse ntt through the port's functions both ways; the
-     MSM's preparation kernels at each prove's shapes (glv_digits on the
-     2^20 prove's whole GLV axis and on a 2^22 and a 2^24 slice, every
-     window, an edge table of scalars in front and alone at c = 4, 8,
-     11, 13, 16 with and without GLV; fq_scale's phi on the 2^20 table
-     and on a slice, a window group's bucket negation, the G2 totals'
-     map back off the iso-twist, the G2 table's rescale at 2^20, 2^22,
-     2^24: tools/bench_fq_scale's cases; and, checked only, a slice
+     MSM's preparation kernels at each geometry's shapes (glv_digits on
+     a whole GLV axis or on a slice, every window, an edge table of
+     scalars in front and alone at c = 4, 8, 11, 13, 16 with and without
+     GLV; fq_scale's phi on a whole table or a slice, a window group's
+     bucket negation, the G2 totals' map back off the iso-twist, the G2
+     table's rescale at each prove's points: tools/bench_fq_scale's
+     cases; and, checked only, a slice
      ending in a ragged block, specs mixing copies, negations and
      products, 70,000 rows of one point, the negations on edge words).
      `add`
@@ -100,8 +102,8 @@ in order; any failure exits non-zero:
   6. the gather tools in-process at 2^21 rows of 64 bytes (the 2^20
      prove's GLV axis): both must report correct and dma_gather must
      have launched; then the MSM tools (bench_msm_phases, msm_ablate,
-     sweep_msm) at the 2^24 and the 2^22 slice shapes, each stage's ms
-     printed;
+     sweep_msm) at the 2^24 and the 2^22 proves' slice widths, each
+     stage's ms printed;
   7. the proof server (server.__main__.main on a thread of this
      process) with the 2^20 fixture and sqchain64 as its registry and
      two witness-generator executables written into ./build: over HTTP,
@@ -116,12 +118,15 @@ in order; any failure exits non-zero:
      fails the phase (counted by a guard this script installs);
   8. generate bench_fixtures/sqchain2097152.{zkey,wtns} on the card and
      prove it through the CLI entry point (cold) and on the loaded
-     Prover (warm): the whole-axis MSM at 2^21, its scans, adds and fused
-     passes at shapes phase 2 held, both proofs pairing-verified; then
-     generate bench_fixtures/sqchain4194304.{zkey,wtns} on the card
+     Prover (warm): its MSM geometry, scans, adds and fused passes at
+     shapes phase 2 held, both proofs pairing-verified; then generate
+     bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
-     through the CLI entry point with the segmented MSM (cold), then on
-     the loaded Prover (warm, fixed (r, s)); the proof must
+     through the CLI entry point (cold), then on the loaded Prover
+     (warm, fixed (r, s)), and against the JAX package's geometry
+     (segment 2^20, c = 13, G = 5, as Prover arguments: warm proves in
+     turns, each side's stage peaks and a profiled prove, a
+     `geometry_2^22` line; so too the 2^23 sqchain below); the proof must
      pairing-verify, scan_cols_packed must have launched once per slice
      per window group per MSM call, and add at the widths phase 2 timed;
      then, sharded: the same fixture proved by D = 2 and D = 4 ranks as
@@ -133,9 +138,9 @@ in order; any failure exits non-zero:
      points, slices, four-step shape, launches); with two or more cards
      also D = 2 over NCCL, a card a rank (not reached on one card);
      then the wide 2^22 circuit (fixtures.generate(extra=2^20 - 2^16):
-     2^22 + 983,040 wires, which the Prover pads to five whole segments;
-     the run fails unless it sliced its axis) and the 2^23 sqchain
-     (slices of 2^20, sequential NTTs), each generated, proved cold and
+     2^22 + 983,040 wires, its axis the plan's for that count, padding
+     weighed) and the 2^23 sqchain (sequential NTTs), each generated,
+     proved cold and
      warm as above and pairing-verified, the wide fixture deleted after
      its proves; then the bench harness (python -m
      rapidsnark_tpu_torch.bench, RSTPU_BENCH_MAX_LOGN=23,
@@ -166,8 +171,16 @@ in order; any failure exits non-zero:
      the same (r, s): its proof must equal the K = 1 proof byte for byte
      and pairing-verify, fr_slot_acc on its tables is held and timed as
      at K = 1, and its front's peak may exceed the K = 1
-     front's by no more than the larger coefficient tables plus 1 GiB; a
-     `prove_2^24` JSON line; then, sharded (the Provers released): the
+     front's by no more than the larger coefficient tables plus 1 GiB;
+     the largest stage peak of the warm proves at K = 1 and K = 3 must
+     stay within PEAK_LIMIT (40 GB); a `prove_2^24` JSON line. Between
+     the two, a Prover with the JAX package's geometry (segment 2^19,
+     c = 13, G = 5, as arguments) on the same fixture: warm proves in
+     turns with the plan's (plan, JAX, JAX, plan), its kernel shapes
+     phase 2's, its stage peaks alone on the card and a profiled prove;
+     every proof the plan's bytes; a `geometry_2^24` JSON line with both
+     geometries' phases, peaks, scan and add device ms and add launches.
+     Then, sharded (the Provers released): the
      2^24 fixture on a one-rank NCCL mesh in this process (four-step NTTs
      at N1 = N2 = 2^12, the sharded MSMs) with the warm prove's (r, s),
      byte-equal to it, kernel shapes held and no plain field op on the
@@ -214,12 +227,19 @@ from collections import Counter
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 LOGN_BIG = 20
-LOGN_WHOLE = 21     # the largest whole-axis prove, a 1-bit top NTT pass
-LOGN_SEG = 22       # the segmented prove
-LOGN_SEQ = 23       # segmented, sequential NTTs with a 3-bit top pass
-LOGN_MAX = 24       # the production size, segmented, sequential NTTs
+LOGN_WHOLE = 21     # a 1-bit top NTT pass
+LOGN_SEG = 22       # the stacked NTT's largest; the sharded proves' size
+LOGN_SEQ = 23       # sequential NTTs with a 3-bit top pass
+LOGN_MAX = 24       # the production size, sliced, sequential NTTs
+# the JAX package's MSM geometry (segment, c, G), a TPU v5e's, by log2 of
+# the domain: the warm 2^22, 2^23 and 2^24 proves run under it too,
+# against the plan's
+JAX_GEOS = {LOGN_SEG: (1 << 20, 13, 5), LOGN_SEQ: (1 << 20, 13, 5),
+            LOGN_MAX: (1 << 19, 13, 5)}
+# the largest stage peak the 2^24 prove may reach under the plan (bytes)
+PEAK_LIMIT = 40 * 10 ** 9
 # the wide 2^22 circuit's extra wires: 2^22 + 2^20 - 2^16 points, which
-# the Prover pads to five whole segments of 2^20
+# the Prover pads to whole slices of the plan's width
 WIDE_EXTRA = (1 << 20) - (1 << 16)
 GEN_LANES = 1 << 18  # scalars per fixed-base ladder chunk (fixtures._CH)
 # the sharded proves: (log2 of the domain, ranks); 2^22 on ranks that share
@@ -487,7 +507,7 @@ def main() -> int:
     from rapidsnark_tpu_torch.utils.limbs import words_to_ints
     from rapidsnark_tpu_torch.server import http as server_http
     from rapidsnark_tpu_torch.server.__main__ import main as server_main
-    from rapidsnark_tpu_torch.parallel import multihost as MH
+    from rapidsnark_tpu_torch.parallel import multihost as MH, pmsm as PM
     from rapidsnark_tpu_torch.tools import (
         HBM_BYTES_PER_S, MONT_IMADS, bench_dma_gather, bench_fq_scale,
         bench_gather, bench_msm_phases, bound_ms, card_line, device_time,
@@ -627,80 +647,65 @@ def main() -> int:
         if e != 0:
             failures.append(f"{name}[{key}] disagrees (max err {e})")
 
-    # main-path shapes of the 2^20 prove: c = 13, G = 5, GLV 2^21 entries
-    G, c = 5, 13
-    M = 1 << (c - 1)
-    add_lanes = {G1P: G * 4 * (M + 1), G2P_ISO: G * 1 * (M + 1)}
+    # the MSM geometry of every prove this run makes: config.msm_plan's
+    # for the rank's axis and the ranks sharing this card, and for the
+    # 2^24 comparison the JAX package's (Prover arguments). Phase 2 holds
+    # every scan, add, glv_digits and fq_scale case at each one's shapes;
+    # a prove fails unless it ran its entry's geometry.
+    card_mem = torch.cuda.get_device_properties(0).total_memory
 
-    def whole(logn):
-        """The whole-axis prove's MSM geometry at 2^logn points (the
-        proves fail unless they ran with it): no segment, c = 13, G = 5;
-        its scans have G x rows x 2^(logn+1) / 256 lanes."""
-        if config.msm_segment(1 << logn) or \
-                MSM.best_window_bits(1 << logn) != c:
-            raise RuntimeError(f"2^{logn} points are not a whole-axis "
-                               f"c = {c} MSM")
-        nbl = (2 << logn) // 256
-        return {"nb": nbl, "c": c, "G": G,
-                "lanes": {G1P: G * 4 * nbl, G2P_ISO: G * nbl}}
-
-    wgeo = {LOGN_BIG: whole(LOGN_BIG), LOGN_WHOLE: whole(LOGN_WHOLE)}
-    lanes = wgeo[LOGN_BIG]["lanes"]
-
-    def segmented(logn):
-        """The segmented prove's MSM geometry at 2^logn points (phases 8
-        and 9 fail unless the proves ran with it): segment, c, window
-        group G, window groups; a slice's scan has segment / 256 lanes
-        per window per table row; add's widths per slice (_window_group
-        on both curves once per window group, then one point per window
-        into the running totals)."""
-        s = config.msm_segment(1 << logn)
-        if not s or (1 << logn) % s:
-            raise RuntimeError(f"2^{logn} points do not segment ({s})")
-        cc = MSM.best_window_bits(1 << logn, s)
+    def plan_geo(npts, ranks=1, plan=None):
+        """The MSM of a rank's axis of npts points: segment (0: the whole
+        axis), c, window group G, window groups, the padded nmax, the
+        entries a slice (width) and the slices; a slice's scans have
+        G x rows x width / 256 lanes; add's widths per slice
+        (_window_group on both curves once per window group, then, when
+        sliced, one point per window into the running totals)."""
+        s, cc, g0 = plan or config.msm_plan(npts, 4, ranks, card_mem)
         nw = -(-GLV_BITS // cc)
-        gg = max(g for g in range(1, config.window_group() + 1)
-                 if nw % g == 0)
+        gg = MSM.group_size(nw, g0)
+        nmax = PM.pad_len_sharded(npts, 1, s)
+        width = s if s and s < 2 * nmax else 2 * nmax
         adds = {}
         for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
             sl = Counter()
             for _ in range(nw // gg):
-                sl.update(add_widths(gg * rows, s // 256, 1 << (cc - 1)))
-                sl[gg * rows] += 1
+                sl.update(add_widths(gg * rows, width // 256, 1 << (cc - 1)))
+                if width < 2 * nmax:
+                    sl[gg * rows] += 1
             adds[curve] = sl
+        nb = width // 256
         return {"segment": s, "c": cc, "G": gg, "groups": nw // gg,
-                "lanes": {G1P: gg * 4 * (s // 256), G2P_ISO: gg * (s // 256)},
+                "nmax": nmax, "width": width, "slices": 2 * nmax // width,
+                "lanes": {G1P: gg * 4 * nb, G2P_ISO: gg * nb},
                 "adds": adds}
 
-    geo = {lg: segmented(lg) for lg in (LOGN_SEG, LOGN_SEQ, LOGN_MAX)}
-    seg_lanes = geo[LOGN_SEG]["lanes"]
-    # a 2^23 slice has the 2^22 slice's shapes (segment, c, G): the
-    # cases below hold both
-    same23 = {k: geo[LOGN_SEQ][k] for k in ("segment", "c", "G", "lanes")}
-    if same23 != {k: geo[LOGN_SEG][k] for k in same23}:
-        raise RuntimeError("the 2^23 slice's geometry is not the 2^22 "
-                           "slice's: give it cases of its own")
-    # add's widths and launches: a whole-axis prove runs _window_group on
-    # both curves once per window group; a slice of a segmented prove as
-    # above
-    groups_big = -(-GLV_BITS // c) // G
-    add_launches = {}
-    for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
-        runs_w = {}
-        for lg, wg in wgeo.items():
-            cnt = Counter()
-            for _ in range(groups_big):
-                cnt.update(add_widths(G * rows, wg["nb"], M))
-            runs_w[f"2^{lg} prove"] = cnt
-        add_launches[curve] = {
-            **runs_w,
-            **{f"2^{lg} slice": g["adds"][curve] for lg, g in geo.items()}}
-    # the sharded MSM's cross-rank sum: the D ranks' window totals of a
-    # curve in one running-sum pass, log2(D) adds over W x rows x D lanes
+    geo = {f"2^{lg}": plan_geo(1 << lg) for lg in
+           (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX)}
+    geo["wide"] = plan_geo((1 << LOGN_SEG) + WIDE_EXTRA)
+    for lg, jg in JAX_GEOS.items():
+        geo[f"2^{lg} JAX"] = plan_geo(1 << lg, plan=jg)
     for logn, nd in SHARDED:
-        nw = -(-GLV_BITS // geo[logn]["c"])
-        for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
-            if nd > 1:
+        if nd > 1:
+            geo[f"2^{logn} D={nd}"] = plan_geo((1 << logn) // nd, nd)
+    for k, g in geo.items():
+        log(f"  MSM geometry {k}: " + json.dumps(
+            {a: b for a, b in g.items() if a not in ("lanes", "adds")}))
+    # the 2^20 prove's widest add (its _ps_at over the buckets), the main
+    # shape of add's cases
+    g20 = geo[f"2^{LOGN_BIG}"]
+    add_lanes = {G1P: g20["G"] * 4 * ((1 << (g20["c"] - 1)) + 1),
+                 G2P_ISO: g20["G"] * ((1 << (g20["c"] - 1)) + 1)}
+    # add's widths and launches a slice (a whole axis is one slice) of
+    # each prove, and the sharded MSM's cross-rank sum: the D ranks'
+    # window totals of a curve in one running-sum pass, log2(D) adds over
+    # W x rows x D lanes
+    add_launches = {curve: {k: g["adds"][curve] for k, g in geo.items()}
+                    for curve in (G1P, G2P_ISO)}
+    for logn, nd in SHARDED:
+        if nd > 1:
+            nw = -(-GLV_BITS // geo[f"2^{logn} D={nd}"]["c"])
+            for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
                 add_launches[curve][f"2^{logn} D={nd} cross-rank sum"] = \
                     Counter({nw * rows * nd: (nd - 1).bit_length()})
     coords = {G1P: 3, G2P_ISO: 6, G2P: 6}
@@ -773,11 +778,10 @@ def main() -> int:
                 f"ms (launches x (device ms - bound) {d - b:.4f} ms)")
         # scan_cols_packed: K in {1, 2, 256}, signs set, some infinities
         A = L - L // 3
-        for K, n in ((1, 1000), (2, 1000), (256, 1000),
-                     (256, lanes[curve]),
-                     (256, wgeo[LOGN_WHOLE]["lanes"][curve]),
-                     (256, seg_lanes[curve]),
-                     (256, geo[LOGN_MAX]["lanes"][curve])):
+        # the 2^20 prove's lanes first: the main case of the kernels line
+        for K, n in ((1, 1000), (2, 1000), (256, 1000)) + tuple(
+                (256, n) for n in dict.fromkeys(g["lanes"][curve]
+                                                for g in geo.values())):
             acc = fe(P, (n, L))
             cols = fe(P, (K, n, A))
             cols[:, ::7] = 0                       # (0,0) = infinity
@@ -1048,10 +1052,12 @@ def main() -> int:
             e = err(got, want)
             del want, got
             ms, dev_t = timed2(lambda: fused.dma_gather(table, idx), 20)
-            lib_ms = timed(lambda: torch.index_select(table, 0, idx64), 20)
+            # the library call on the kernel's yardstick: device ms
+            lib = lambda: torch.index_select(table, 0, idx64)  # noqa: E731
             record("dma_gather", f"n=m=2^{glogn} R={R} {kind}", e, ms,
                    dev_t, plain_ms, 2 * gn * R * 4 + 4 * gn, 0,
-                   library_ms=lib_ms)
+                   library_ms=device_time(lib, 20)[0],
+                   library_wrapper_ms=timed(lib, 20))
             if (glogn, kind) == (18, "perm"):
                 got = fused.dma_gather(table, idx, blk=256, nsem=4)
                 torch.cuda.synchronize()
@@ -1266,7 +1272,6 @@ def main() -> int:
         [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in edge],
         dtype=np.uint32).view(np.int32)).to(dev)
     glv_imads = 240
-    c_big = MSM.best_window_bits(1 << LOGN_BIG)   # the 2^20 prove's c
     prep = {}               # (kernel, prove, curve) -> the case's key
 
     def digits_case(tag, sc, params, half, cc, timed_case=True):
@@ -1297,21 +1302,23 @@ def main() -> int:
     for cc in (4, 8, 11, 13, 16):
         digits_case(f"edge table c={cc} no GLV", edge_w[None], None, None,
                     cc, timed_case=False)
-    for logn in (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX):
-        seg_ = geo[logn]["segment"] if logn in geo else 0
-        cc = geo[logn]["c"] if seg_ else c_big
+    held = {}                     # a case's key -> the geometry it ran
+    for gk, g in geo.items():
+        sliced = g["slices"] > 1
+        n_ = g["width"] if sliced else g["nmax"]
         for grp, rows_, params in (("g1", 4, GLVM.G1_PARAMS),
                                    ("g2", 1, GLVM.G2_PARAMS)):
-            n_ = seg_ or (1 << logn)
-            sc = fe_card(R_FR, (rows_, 2 * n_ if seg_ else n_))
+            half = (1 if grp == "g1" else 0) if sliced else None
+            key = f"{grp} {rows_} x 2^{n_.bit_length() - 1} c={g['c']}" + (
+                f" half {half} of a slice" if sliced else " both halves")
+            prep[("glv_digits", gk, grp)] = key
+            if key in held:
+                continue
+            held[key] = gk
+            sc = fe_card(R_FR, (rows_, 2 * n_ if sliced else n_))
             sc.view(-1, 8)[:edge_w.shape[0]] = edge_w
-            view = sc[:, n_:] if seg_ else sc
-            half = (1 if grp == "g1" else 0) if seg_ else None
-            key = f"{grp} {rows_} x 2^{n_.bit_length() - 1}" + (
-                f" half {half} of a 2^{logn} slice" if seg_ else
-                f" both halves, the 2^{logn} prove")
-            digits_case(key, view, params, half, cc)
-            prep[("glv_digits", logn, grp)] = key
+            view = sc[:, n_:] if sliced else sc
+            digits_case(key, view, params, half, g["c"])
             del sc, view
         torch.cuda.empty_cache()
     # fq_scale at its callers' shapes (tools/bench_fq_scale.cases, the
@@ -1321,7 +1328,8 @@ def main() -> int:
     # the negations on the edge words of the canonical and relaxed range
     for key, tag, fn, plain, nbytes, products, inp in bench_fq_scale.cases(
             lambda shape, mod: fe_card(mod, shape),
-            (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX)):
+            [(k, g["nmax"], (g["segment"], g["c"], g["G"]))
+             for k, g in geo.items()]):
         got = fn()
         want, plain_ms = timed_once(plain)
         torch.cuda.synchronize()
@@ -1332,7 +1340,8 @@ def main() -> int:
                products * MONT_IMADS,
                copy_ms=device_time(inp.clone, 20)[0])
         if tag[0] == "phi":
-            prep[("fq_scale", tag[1], tag[2])] = key
+            for gk in tag[1]:
+                prep[("fq_scale", gk, tag[2])] = key
         torch.cuda.empty_cache()
     beta1 = GLVM.params_for(G1P).beta_mont
     edge_y = torch.from_numpy(np.array(
@@ -1822,113 +1831,81 @@ def main() -> int:
         log(f"  add widths and launches as phase 2 timed them ({run} x "
             f"{times})")
 
-    def prep_launches(counts, slices, groups, what):
-        """A cold prove: the Prover's set-up rescales the G2 table (one
-        fq_scale), then two MSM calls (G1, G2) of `slices` slices each:
+    def prep_launches(counts, slices, groups, what, cold=True):
+        """A prove, cold (the Prover's set-up rescales the G2 table: one
+        fq_scale) or warm: two MSM calls (G1, G2) of `slices` slices each:
         glv_digits once a slice; fq_scale once a phi slice (half of them,
         or the whole axis), once a window group of a slice (the bucket
         negation) and once for the G2 totals' map back off the
         iso-twist."""
         phis = slices // 2 if slices > 1 else 1
         want = {"glv_digits": 2 * slices,
-                "fq_scale": 1 + 2 * phis + 2 * slices * groups + 1}
+                "fq_scale": cold + 2 * phis + 2 * slices * groups + 1}
         got = {k: counts[k] for k in want}
         if got != want:
             raise RuntimeError(f"{what} launched {got}, not {want}")
         log(f"  preparation kernels' launches as expected: {got}")
 
-    def check_segmented(prover, logn, counts, nmax=None):
-        """A segmented prove ran phase 2's geometry for a domain of 2^logn
-        (nmax points, default 2^logn) and every scan, add and fused NTT
-        pass at a shape phase 2 held. Returns (slices, window groups)."""
-        g = geo[logn]
-        nmax = nmax or 1 << logn
+    def check_geo(prover, gk, counts, cold=True, passes=True):
+        """A prove (cold: with the Prover's set-up) ran geometry geo[gk]
+        (nmax, segment, c, G), every scan, add and (with `passes`) fused
+        NTT pass at a shape phase 2 held, and the preparation kernels'
+        launches that geometry makes. Returns (slices, window groups)."""
+        g = geo[gk]
         nwin = -(-GLV_BITS // prover.c_bits)
-        groups = nwin // max(k for k in range(1, prover.window_group + 1)
-                             if nwin % k == 0)
-        slices = 2 * prover.nmax // prover.segment if prover.segment else 1
-        log(f"  segment {prover.segment} c_bits {prover.c_bits} slices "
-            f"{slices} window groups {groups} ntt_sequential "
-            f"{prover.ntt_seq} launches {json.dumps(counts)}")
-        ran = (prover.nmax, prover.segment, prover.c_bits, nwin // groups,
-               prover.ntt_seq)
-        if ran != (nmax, g["segment"], g["c"], g["G"],
-                   config.ntt_sequential(logn)):
+        ran = (prover.nmax, prover.segment, prover.c_bits,
+               MSM.group_size(nwin, prover.window_group))
+        log(f"  {gk}: nmax {prover.nmax} segment {prover.segment} c_bits "
+            f"{prover.c_bits} G {ran[3]} slices {g['slices']} window "
+            f"groups {g['groups']} ntt_sequential {prover.ntt_seq} "
+            f"launches {json.dumps(counts)}")
+        if ran != (g["nmax"], g["segment"], g["c"], g["G"]):
             raise RuntimeError(
-                f"the 2^{logn} prove ran (nmax, segment, c, group, "
-                f"sequential NTT) {ran}; phase 2 checked the kernels for "
-                f"{(nmax, g['segment'], g['c'], g['G'])}")
-        check_widths(f"2^{logn} slice", slices)
+                f"the {gk} prove ran (nmax, segment, c, G) {ran}; phase 2 "
+                f"held the kernels for "
+                f"{(g['nmax'], g['segment'], g['c'], g['G'])}")
+        slices, groups = g["slices"], g["groups"]
+        check_widths(gk, slices)
         want = Counter({(g1, 256, g["lanes"][cv]): slices * groups
                         for g1, cv in ((True, G1P), (False, G2P_ISO))})
         if seen["scan"] != want or counts["scan_cols_packed"] != \
                 2 * slices * groups:
             raise RuntimeError(f"scans ran at {dict(seen['scan'])}, phase 2 "
                                f"checked {dict(want)}")
-        if set(seen["pass"]) - ntt_checked or not seen["pass"] or \
-                sum(seen["pass"].values()) != counts["ntt_fused_pass"]:
+        if passes and (set(seen["pass"]) - ntt_checked or not seen["pass"]
+                       or sum(seen["pass"].values())
+                       != counts["ntt_fused_pass"]):
             raise RuntimeError(f"fused NTT passes ran at "
                                f"{dict(seen['pass'])}, phase 2 checked "
                                f"{sorted(ntt_checked)}")
-        log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
+        log(f"  scans{' and fused NTT passes' if passes else ''} at the "
+            f"shapes phase 2 checked: "
             f"{json.dumps([list(k) + [v] for k, v in seen['pass'].items()])}")
-        prep_launches(counts, slices, groups, f"the 2^{logn} prove")
-        need(counts, ("add", "ntt_fused_pass") + PROVE_KERNELS,
-             f"the 2^{logn} prove")
-        return slices, groups
-
-    def check_whole(prover, logn, counts):
-        """A whole-axis prove ran phase 2's geometry for 2^logn points:
-        every scan, add and fused NTT pass at a shape phase 2 held.
-        Returns the window groups."""
-        w = wgeo[logn]
-        groups = -(-GLV_BITS // w["c"]) // w["G"]
-        ran = (prover.nmax, prover.segment, prover.c_bits,
-               prover.window_group, prover.ntt_seq)
-        log(f"  segment {prover.segment} nmax {prover.nmax} c_bits "
-            f"{prover.c_bits} window groups {groups} launches "
-            f"{json.dumps(counts)}")
-        if ran != (1 << logn, 0, w["c"], w["G"], config.ntt_sequential(logn)):
-            raise RuntimeError(f"the 2^{logn} prove ran (nmax, segment, c, "
-                               f"group, sequential NTT) {ran}; phase 2 "
-                               f"checked {(1 << logn, 0, w['c'], w['G'])}")
-        check_widths(f"2^{logn} prove", 1)
-        want = Counter({(g1, 256, w["lanes"][cv]): groups
-                        for g1, cv in ((True, G1P), (False, G2P_ISO))})
-        if seen["scan"] != want:
-            raise RuntimeError(f"scans ran at {dict(seen['scan'])}, phase 2 "
-                               f"checked {dict(want)}")
-        if set(seen["pass"]) - ntt_checked or not seen["pass"]:
-            raise RuntimeError(f"fused NTT passes ran at "
-                               f"{dict(seen['pass'])}, phase 2 checked "
-                               f"{sorted(ntt_checked)}")
-        log(f"  scans and fused NTT passes at the shapes phase 2 checked: "
-            f"{json.dumps([list(k) + [v] for k, v in seen['pass'].items()])}")
-        prep_launches(counts, 1, groups, f"the 2^{logn} prove")
+        prep_launches(counts, slices, groups, f"the {gk} prove", cold)
         need(counts, ("add", "scan_cols_packed", "ntt_fused_pass")
-             + PROVE_KERNELS, f"the 2^{logn} prove")
-        return groups
+             + PROVE_KERNELS, f"the {gk} prove")
+        return slices, groups
 
     def check_rank(line, seen_, logn, nd):
         """A rank of a sharded prove of 2^logn points over nd ranks ran
-        the segmented geometry phase 2 held for that size on its slices,
-        the cross-rank sums at the widths phase 2 timed, the four-step's
+        the geometry phase 2 held for its axis and the ranks sharing the
+        card, the cross-rank sums at the widths phase 2 timed, the four-step's
         transforms as fused passes phase 2 held and its row products
         (twice the diagonal twiddle, once the coset shift) at a shape
         phase 2 held."""
-        g = geo[logn]
+        g = geo[f"2^{logn} D={nd}" if nd > 1 else f"2^{logn}"]
         p1 = (logn + 1) // 2
         n2 = 1 << (logn - p1)
         four = {"n1": 1 << p1, "n2": n2, "c2": n2 // nd,
                 "local_domain": (1 << logn) // nd}
-        sl = 2 * (1 << logn) // nd // g["segment"]
+        sl = g["slices"]
         ran = (line["size"], line["nmax"], line["segment"], line["c_bits"],
                line["slices"], line["four_step"])
-        if ran != (nd, 1 << logn, g["segment"], g["c"], sl, four):
+        want_ = (nd, g["nmax"] * nd, g["segment"], g["c"], sl, four)
+        if ran != want_:
             raise RuntimeError(
                 f"a rank of 2^{logn} over {nd} ran (ranks, nmax, segment, "
-                f"c, slices, four-step) {ran}; phase 2 held "
-                f"{(nd, 1 << logn, g['segment'], g['c'], sl, four)}")
+                f"c, slices, four-step) {ran}; phase 2 held {want_}")
         nw = -(-GLV_BITS // g["c"])
         for curve, rows, is_g1 in ((G1P, 4, True), (G2P_ISO, 1, False)):
             want = Counter({n: k * sl for n, k in g["adds"][curve].items()})
@@ -1955,6 +1932,74 @@ def main() -> int:
             raise RuntimeError(f"a rank's row products ran at "
                                f"{dict(seen_['pointwise'])}; phase 2 held "
                                f"{sorted(pointwise_held)}")
+
+    def kernel_ms(prof):
+        """The scans' and adds' device ms in a profiled prove's MSMs."""
+        ms = prof.get("msms", {}).get("port_kernels_ms", {})
+        return {"scans": sum(v for k, v in ms.items()
+                             if k.startswith("k_scan")),
+                "add": sum(v for k, v in ms.items()
+                           if k in ("k_add_g1", "k_add_g2"))}
+
+    def compare_jax(prover, zpath, wpath, lg, warm, peaks, want, adds,
+                    profile=None):
+        """The JAX package's MSM geometry JAX_GEOS[lg] (Prover arguments)
+        against the plan's loaded `prover` (its warm phases, stage peaks,
+        warm proof `want`, add launches a prove and, when given, profile)
+        on the same fixture: the JAX Prover's kernel shapes phase 2's,
+        warm proves in turns (plan, JAX, JAX, plan) with both loaded, the
+        plan's Prover released, the JAX Prover's stage peaks alone on the
+        card, a profiled prove of each; every proof `want`'s bytes,
+        pairing-verified. Logs and returns both sides."""
+        jg = JAX_GEOS[lg]
+        log(f"  2^{lg} under the JAX package's MSM geometry {jg} against "
+            f"the plan's {tuple(prover.plan)}")
+        if profile is None:
+            profile = profiled_prove(prover, zpath, wpath, want)
+        zk = read_zkey(zpath)
+        with no_plain_on_card(f"the 2^{lg} JAX-geometry Prover"):
+            old = Prover(zk, window_bits=jg[1], window_group=jg[2],
+                         segment=jg[0], device="cuda")
+            zk.close()
+            del zk
+            turns, proofs = [], []
+            for i, who in enumerate(("plan", "jax", "jax", "plan")):
+                with shape_log() as now:
+                    ph, _ = warm_prove(prover if who == "plan" else old,
+                                       zpath, wpath, f"{lg}_turn_{who}",
+                                       rs=(r_fix, s_fix), proof_out=proofs)
+                if i == 1:
+                    seen.clear()
+                    seen.update(now)
+                    jax_counts = dict(D.counts)
+                turns.append((who, ph))
+            check_geo(old, f"2^{lg} JAX", jax_counts, cold=False)
+            prover.release()
+            torch.cuda.empty_cache()
+            jax_peaks = {}
+            jax_warm, _ = warm_prove(old, zpath, wpath, f"{lg}_jax_warm",
+                                     peaks=jax_peaks, rs=(r_fix, s_fix),
+                                     proof_out=proofs)
+            jax_profile = profiled_prove(old, zpath, wpath, want)
+        if any((q.a, q.b, q.c) != (want.a, want.b, want.c) for q in proofs):
+            raise RuntimeError(f"a 2^{lg} proof under the JAX geometry or in "
+                               "the turns differs from the plan's")
+        res = {
+            "plan": {"geometry": list(prover.plan), "warm_phases": warm,
+                     "peaks": peaks,
+                     "turns": [ph for w, ph in turns if w == "plan"],
+                     "device_ms": kernel_ms(profile), "add_launches": adds},
+            "jax": {"geometry": list(jg), "warm_phases": jax_warm,
+                    "peaks": jax_peaks,
+                    "turns": [ph for w, ph in turns if w == "jax"],
+                    "device_ms": kernel_ms(jax_profile),
+                    "add_launches": jax_counts["add"]},
+            "proofs_equal": True, "card": card}
+        log(json.dumps({f"geometry_2^{lg}": res}))
+        old.release()
+        del old
+        torch.cuda.empty_cache()
+        return res
 
     def sharded_ranks(nd, backend, zpath, wpath, tag, limit=900.0):
         """nd processes of this script (--rank) proving zpath as the ranks
@@ -2012,11 +2057,8 @@ def main() -> int:
     cold, peak, prover = logged_prove(zpath, wpath, "big_cold")
     big_counts = dict(D.counts)
     log("  launches:", json.dumps(big_counts))
-    check_widths("2^20 prove", 1)
-    need(big_counts, ("add", "scan_cols_packed", "ntt_fused_pass")
-         + PROVE_KERNELS, f"the 2^{LOGN_BIG} prove")
-    prep_launches(big_counts, 1, -(-GLV_BITS // prover.c_bits) // G,
-                  f"the 2^{LOGN_BIG} prove")
+    # (phase 2 times the 2^20 prove's main passes, not each of them)
+    check_geo(prover, f"2^{LOGN_BIG}", big_counts, passes=False)
     warm, peak2 = warm_prove(prover, zpath, wpath, "big_warm")
     rows_fused, front_peak, _ = front_rows(prover, wpath)
     extras = phase4_options(prover, zpath, wpath, rows_fused)
@@ -2077,11 +2119,16 @@ def main() -> int:
     # slices of the prove's shape) with its gather formulations, and a
     # sweep of c there on G1 (4 rows) and G2
     msm_tools = {}
+    tool_shapes = {}
     for lg in (LOGN_MAX, LOGN_SEG):
-        g = geo[lg]
-        sl = g["segment"].bit_length() - 1
-        cc, gg, seg_ = str(g["c"]), str(g["G"]), str(g["segment"])
-        log(f"phase6: the MSM tools at the 2^{lg} slice shape")
+        g = geo[f"2^{lg}"]
+        tool_shapes.setdefault((g["width"], g["c"], g["G"]), lg)
+    for (width, c_, g_), lg in tool_shapes.items():
+        sl = width.bit_length() - 1
+        cc, gg, seg_ = str(c_), str(g_), str(width)
+        sweep_cs = ",".join(str(k) for k in (c_ - 1, c_, c_ + 1) if k <= 16)
+        log(f"phase6: the MSM tools at the 2^{lg} slice shape "
+            f"(2^{sl} entries)")
         D.reset_counts()
         t0 = time.perf_counter()
         stages = {cv: bench_msm_phases.main(
@@ -2089,9 +2136,8 @@ def main() -> int:
             device="cuda") for cv in ("g1", "g2")}
         ablate = msm_ablate.main([str(sl + 1), "2", seg_, cc, "4", gg],
                                  device="cuda")
-        sweep = sweep_msm.main(
-            ["both", str(sl + 1), f"{g['c'] - 1},{cc},{g['c'] + 1}", seg_,
-             "2", "4", gg], device="cuda")
+        sweep = sweep_msm.main(["both", str(sl + 1), sweep_cs, seg_, "2",
+                                "4", gg], device="cuda")
         tcounts = dict(D.counts)
         if not (all(v["digits_equal_plain"] for v in stages.values())
                 and ablate["gather_equal"]):
@@ -2288,13 +2334,15 @@ def main() -> int:
         "warm_2^20": req_warm, "sqchain64": req_small, "card": card}}))
 
     # ---------------------------------------------------------- phase 8 --
-    def prove_size(logn, tag, extra=0, proof_out=None):
+    def prove_size(logn, tag, gk, extra=0, proof_out=None, compare=False):
         """Generate the 2^logn sqchain on the card (with `extra` wires,
         the wide variant), prove it through the CLI entry point (cold)
         and on the loaded Prover (warm, fixed (r, s), the device peak of
         each stage; the proof appended to `proof_out` when given), each
-        proof pairing-verified and the prove's kernel shapes held to
-        phase 2's. Returns its JSON entry and the zkey and wtns paths."""
+        proof pairing-verified and the prove's geometry and kernel shapes
+        geo[gk]'s, as phase 2 held them; with `compare`, against the JAX
+        package's geometry too (compare_jax). Returns its JSON entry and
+        the zkey and wtns paths."""
         D.reset_counts()
         parts = {}
         t0 = time.perf_counter()
@@ -2315,20 +2363,12 @@ def main() -> int:
         log(f"  {tag} Prover: n_vars {prover.n_vars} domain {prover.domain} "
             f"nmax {prover.nmax} segment {prover.segment} c "
             f"{prover.c_bits}")
-        if logn in geo:
-            seg_ = geo[logn]["segment"]
-            want_nmax = -(-max(prover.domain, prover.n_vars) // seg_) * seg_
-            if not prover.segment or prover.nmax % prover.segment:
-                raise RuntimeError(f"the {tag} Prover did not slice its "
-                                   f"axis: nmax {prover.nmax}, segment "
-                                   f"{prover.segment}")
-            slices, groups = check_segmented(prover, logn, counts,
-                                             nmax=want_nmax)
-        else:
-            slices, groups = 1, check_whole(prover, logn, counts)
-        peaks = {}
+        slices, groups = check_geo(prover, gk, counts)
+        peaks, proofs = {}, []
         warm, _ = warm_prove(prover, zp, wp, f"{tag}_warm", peaks=peaks,
-                             rs=(r_fix, s_fix), proof_out=proof_out)
+                             rs=(r_fix, s_fix), proof_out=proofs)
+        if proof_out is not None:
+            proof_out += proofs
         out = {"cold": cold, "warm": warm, "cli_wall_s": walls[f"{tag}_cold"],
                "setup": dict(prover.setup_phases),
                "peak_mem_bytes": {"cli_cold": peak, **{
@@ -2340,24 +2380,29 @@ def main() -> int:
                "window_groups": groups, "ntt_sequential": prover.ntt_seq,
                "launches": counts, "generator_launches": gcounts,
                "card": card}
+        if compare:
+            out["geometry"] = compare_jax(prover, zp, wp, logn, warm, peaks,
+                                          proofs[0], counts["add"])
         prover.release()
         torch.cuda.empty_cache()
         return out, zp, wp
 
     log(f"phase8: generate sqchain{1 << LOGN_WHOLE} on the card (the "
         "whole-axis MSM, a 1-bit top NTT pass)")
-    whole_out, _, _ = prove_size(LOGN_WHOLE, "whole")
+    whole_out, _, _ = prove_size(LOGN_WHOLE, "whole", f"2^{LOGN_WHOLE}")
     log(json.dumps({f"prove_2^{LOGN_WHOLE}": whole_out}))
 
     log(f"phase8: generate sqchain{1 << LOGN_SEG} on the card")
     seg_proof = []
-    seg_out, zpath, wpath = prove_size(LOGN_SEG, "seg", proof_out=seg_proof)
+    seg_out, zpath, wpath = prove_size(LOGN_SEG, "seg", f"2^{LOGN_SEG}",
+                                       proof_out=seg_proof, compare=True)
     gen_counts, seg_counts = seg_out["generator_launches"], seg_out["launches"]
     # the kernels' share of the segmented MSMs, from this run's times at
     # the slice's shapes: one G1 and one G2 scan per slice per group
     scan_s = seg_out["slices"] * seg_out["window_groups"] * 1e-3 * sum(
         next(cs["ms"] for cs in results["scan_cols_packed"]["cases"]
-             if cs["case"] == f"{tag} K=256 n={seg_lanes[cv]}")
+             if cs["case"] ==
+             f"{tag} K=256 n={geo[f'2^{LOGN_SEG}']['lanes'][cv]}")
         for tag, cv in (("g1", G1P), ("g2", G2P_ISO)))
     seg_out.update(msms_scan_kernel_s=scan_s,
                    msms_other_s=seg_out["warm"]["msms"] - scan_s)
@@ -2414,13 +2459,15 @@ def main() -> int:
     log(f"phase8 wide: sqchainw{1 << LOGN_SEG} on the card ({WIDE_EXTRA} "
         "more wires than the domain: the Prover pads its axis to whole "
         "segments)")
-    wide_out, zp, wp = prove_size(LOGN_SEG, "wide", extra=WIDE_EXTRA)
+    wide_out, zp, wp = prove_size(LOGN_SEG, "wide", "wide",
+                                  extra=WIDE_EXTRA)
     for f in (zp, wp):
         os.remove(f)
     log(json.dumps({f"prove_2^{LOGN_SEG}_wide": wide_out}))
     log(f"phase8: generate sqchain{1 << LOGN_SEQ} on the card (slices of "
         "2^20, sequential NTTs with a 3-bit top pass)")
-    seq_out, _, _ = prove_size(LOGN_SEQ, "seq")
+    seq_out, _, _ = prove_size(LOGN_SEQ, "seq", f"2^{LOGN_SEQ}",
+                               compare=True)
     log(json.dumps({f"prove_2^{LOGN_SEQ}": seq_out}))
 
     # ------------------------------------------------ phase 8, harness --
@@ -2524,7 +2571,7 @@ def main() -> int:
     max_counts = dict(D.counts)
     host["cli_rss_peak"] = cli_rss.peak
     host["machine_after"] = machine(fixdir)
-    slices, groups = check_segmented(prover, LOGN_MAX, max_counts)
+    slices, groups = check_geo(prover, f"2^{LOGN_MAX}", max_counts)
     peaks, k1_proof = {}, []
     with no_plain_on_card(f"the warm 2^{LOGN_MAX} prove"):
         warm, _ = warm_prove(prover, zpath, wpath, "max_warm", peaks=peaks,
@@ -2570,11 +2617,14 @@ def main() -> int:
         "card_mem_bytes": torch.cuda.get_device_properties(0).total_memory,
         "launches": max_counts, "generator_launches": max_gen_counts,
         "nmax": prover.nmax, "segment": prover.segment,
-        "c_bits": prover.c_bits, "window_group": geo[LOGN_MAX]["G"],
+        "c_bits": prover.c_bits, "window_group": geo[f"2^{LOGN_MAX}"]["G"],
         "slices": slices, "window_groups": groups,
         "ntt_sequential": prover.ntt_seq, "host": host,
         "profile_warm": profile, "card": card}
-    prover.release()
+
+    out["geometry"] = compare_jax(prover, zpath, wpath, LOGN_MAX, warm,
+                                  peaks, k1_proof[0], max_counts["add"],
+                                  profile)
     del prover
     torch.cuda.empty_cache()
 
@@ -2584,28 +2634,9 @@ def main() -> int:
     log(f"  {name} with every coefficient record in three parts")
     t0 = time.perf_counter()
     zk = read_zkey(zpath)
-    c1, c2 = 0x1234567 + (1 << 200), 0x89ABCDEF + (1 << 190)
-    cw = [torch.from_numpy(np.frombuffer(
-        (c * (1 << 256) % R_FR).to_bytes(32, "little"), "<u4")
-        .view(np.int32).copy()).to(dev) for c in (c1, c2)]
-    vals = torch.from_numpy(np.ascontiguousarray(zk.coef_val)
-                            .view(np.int32)).to(dev)
-    split_counts = dict.fromkeys(FRONT_KERNELS, 0)
     D.reset_counts()
-    p1 = FRONT.fr_pointwise("mul", vals, cw[0])
-    p2 = FRONT.fr_pointwise("mul", vals, cw[1])
-    p3 = FRONT.fr_pointwise("sub", FRONT.fr_pointwise("sub", vals, p1), p2)
-    split_counts.update({k: D.counts[k] for k in FRONT_KERNELS})
-    nz = (vals != 0).any(dim=1)
-    if bool(((p1 == p2).all(dim=1) & nz).any()) or \
-            bool(((p1 == p3).all(dim=1) & nz).any()) or \
-            bool(((p2 == p3).all(dim=1) & nz).any()):
-        raise RuntimeError("a record's three parts are not distinct")
-    parts3 = torch.stack([p1, p2, p3], dim=1).reshape(-1, 8).cpu().numpy()
-    del vals, p1, p2, p3, nz
-    zk3 = fixtures.split_coefs(zk, np.full(zk.n_coefs, 3, np.int64),
-                               parts3.view(np.uint32))
-    del parts3
+    zk3 = fixtures.split_thirds(zk, dev)
+    split_counts = {k: D.counts[k] for k in FRONT_KERNELS}
     split_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     k3_guard = contextlib.ExitStack()
@@ -2637,6 +2668,12 @@ def main() -> int:
     pa, pb = k1_proof[0], k3_proofs[-1]
     if (pa.a, pa.b, pa.c) != (pb.a, pb.b, pb.c):
         raise RuntimeError("the K = 3 proof differs from the K = 1 proof")
+    # the plan leaves half of the card to a second circuit's tables
+    for tag, pk in (("K = 1", peaks), ("K = 3", k3_peaks)):
+        if max(pk.values()) > PEAK_LIMIT:
+            raise RuntimeError(f"the warm 2^{LOGN_MAX} prove at {tag} "
+                               f"peaked at {max(pk.values())} B, over "
+                               f"{PEAK_LIMIT} B: {pk}")
     allowed = peaks["front"] + (k3_coef_bytes - k1_coef_bytes) + (1 << 30)
     if k3_peaks["front"] > allowed:
         raise RuntimeError(f"the K = 3 front peaked at {k3_peaks['front']} "
@@ -2757,9 +2794,10 @@ def main() -> int:
         "fr_pointwise": ("csrc/front.cu", "rapidsnark_tpu/prover.py:686",
                          big_counts, f"h 2^{LOGN_BIG}"),
         "glv_digits": ("csrc/msm.cu", "rapidsnark_tpu/ops/glv.py:230",
-                       big_counts, prep[("glv_digits", LOGN_BIG, "g1")]),
+                       big_counts,
+                       prep[("glv_digits", f"2^{LOGN_BIG}", "g1")]),
         "fq_scale": ("csrc/msm.cu", "rapidsnark_tpu/ops/msm.py:535",
-                     big_counts, prep[("fq_scale", LOGN_BIG, "g1")]),
+                     big_counts, prep[("fq_scale", f"2^{LOGN_BIG}", "g1")]),
     }
     runs = {"sqchain64": small_counts, f"2^{LOGN_BIG}": big_counts,
             f"2^{LOGN_BIG} per-stage": stage_counts,

@@ -38,7 +38,7 @@ one a coset element. A share above 100 is a bug in the count and raises.
 Knobs (as the root bench.py's): RSTPU_BENCH_BUDGET_S (wall budget,
 default 2800), RSTPU_BENCH_LOGN (kernel metric size, default 20),
 RSTPU_BENCH_REPS (timed proves and kernel reps, default 3),
-RSTPU_BENCH_WINDOW (the MSM metrics' c, default best_window_bits),
+RSTPU_BENCH_WINDOW (the MSM metrics' c, default config.msm_plan's),
 RSTPU_BENCH_PROVE=0 (no proves), RSTPU_BENCH_MAX_LOGN (the largest rung,
 default 24), RSTPU_BENCH_KERNELS=0 (no kernel metrics),
 RSTPU_BENCH_SUBPROC=0 (rungs in this process).
@@ -310,7 +310,8 @@ def bench_prove(zpath: str, wpath: str, reps: int, device="cuda",
             setup_phases=dict(prover.setup_phases),
             last_phases=dict(prover.last_phases), peaks_bytes=peaks,
             nmax=prover.nmax, segment=prover.segment, c=prover.c_bits,
-            window_group=prover.window_group, n_vars=prover.n_vars,
+            window_group=prover.window_group, plan=prover.plan._asdict(),
+            n_vars=prover.n_vars,
             domain=prover.domain, launches=launches, device=device_info(dev),
             baseline="stand-in-estimate", **extra)
     finally:
@@ -422,13 +423,15 @@ def bench_msm(curve: str, log_n: int, reps: int, c: Optional[int] = None,
     if curve == "g2":
         pts = MSM.g2_rescale_packed(pts)
     sc = _i32(msm_scalars(n)[None], dev)
-    c = c or MSM.best_window_bits(n)
-    group = window_group or config.window_group()
+    plan = config.msm_plan(n, 1, 1, D.total_memory(dev))
+    c = c or plan.c
+    group = window_group or config.int_env("RSTPU_WINDOW_GROUP") or plan.G
     glv = GLV.enabled()
     cv = G1P if curve == "g1" else G2P
 
     def run(use_glv=glv):
-        return MSM.msm(cv, pts, sc, c, group, combine=True, glv=use_glv)
+        return MSM.msm(cv, pts, sc, c, group, combine=True,
+                       segment=plan.segment, glv=use_glv)
 
     samples = _time_calls(run, reps, dev)
     if _affine(run(), curve) != _affine(run(not glv), curve):

@@ -1,10 +1,11 @@
 """Runtime knobs of the port (environment variables, as in the JAX
-package):
+package), and the MSM's memory plan on the H100:
 
-    RSTPU_WINDOW_BITS    Pippenger window size c (default: auto by n)
-    RSTPU_WINDOW_GROUP   windows batched per MSM group (default 5)
-    RSTPU_MSM_SEGMENT    points per MSM bucket slice (default: 0 up to
-                         2^21 points, 2^20 above, 2^19 from 2^24)
+    RSTPU_WINDOW_BITS    Pippenger window size c (default: msm_plan's)
+    RSTPU_WINDOW_GROUP   windows batched per MSM group (default:
+                         msm_plan's)
+    RSTPU_MSM_SEGMENT    entries per MSM bucket slice (default:
+                         msm_plan's; 0: the whole axis)
     RSTPU_NTT_FUSE       0: per-stage NTT layers (ntt_tail from 2^12
                          points + one ntt_butterfly per other layer);
                          anything else: fused passes (default: fused at
@@ -24,31 +25,49 @@ package):
                          (default 0: one process, one card)
     RSTPU_PROFILE        a directory: Prover.prove writes a torch.profiler
                          trace of each prove there
+
+msm_plan sets the MSM's geometry (slice, c, window group) from the card's
+memory and from MSM_COST, times measured on an H100 80GB HBM3
+(tools/geometry_sweep; PERF.md). On one such card it gives c = 16 from
+2^18 points on, and (segment, G): whole axes with G = 8 at 2^20 points,
+4 at 2^21 and 2 at 2^22, slices of 2^23 entries with G = 2 at 2^23 and
+2^24 points; smaller cards and ranks sharing a card get narrower slices.
+The Prover takes its arguments first, then the three variables above,
+then the plan. msm_segment, window_group, ntt_sequential and
+ops/msm.best_window_bits keep the JAX package's geometry, tuned on a TPU
+v5e: the tests hold them at parity with it, and chip_smoke.py runs it
+beside the plan.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 
-def _int_env(name: str) -> Optional[int]:
+def int_env(name: str) -> Optional[int]:
+    """The integer an environment variable holds; None when unset or
+    empty."""
     v = os.environ.get(name)
     return int(v) if v else None
 
 
 def window_bits() -> Optional[int]:
-    return _int_env("RSTPU_WINDOW_BITS")
+    return int_env("RSTPU_WINDOW_BITS")
 
 
 def window_group() -> int:
-    v = _int_env("RSTPU_WINDOW_GROUP")
+    """RSTPU_WINDOW_GROUP, else the JAX package's window group (5, the
+    TPU's measured optimum)."""
+    v = int_env("RSTPU_WINDOW_GROUP")
     return 5 if v is None else v
 
 
 def msm_segment(n: int) -> int:
-    """The JAX package's slice rule: whole-axis scans up to 2^21 points."""
-    v = _int_env("RSTPU_MSM_SEGMENT")
+    """RSTPU_MSM_SEGMENT, else the JAX package's slice rule, a TPU v5e
+    out-of-memory workaround: whole-axis scans up to 2^21 points, 2^20
+    entries a slice above that, 2^19 from 2^24."""
+    v = int_env("RSTPU_MSM_SEGMENT")
     if v is not None:
         return v
     if n >= (1 << 24):
@@ -71,11 +90,120 @@ def ntt_fuse(n: int) -> bool:
 def ntt_sequential(power: int) -> bool:
     """Whether the front transforms a, b, c one at a time (a third of the
     NTT's temporaries) instead of as one stack; RSTPU_NTT_SEQ=1/0
-    decides when set, else domains of 2^23 and more."""
+    decides when set, else domains of 2^23 and more (the JAX package's
+    rule, for HBM pressure beside the point tables on a TPU v5e)."""
     v = os.environ.get("RSTPU_NTT_SEQ")
     if v is not None:
         return v != "0"
     return power >= 23
+
+
+# ---------------------------------------------------------------------------
+# the MSM's memory plan on the H100
+# ---------------------------------------------------------------------------
+
+# torch.cuda.get_device_properties().total_memory of one H100 80GB HBM3:
+# the memory a Prover on the CPU plans for, so its geometry is the card's
+CARD_MEMORY = 85_017_493_504
+# the share of a rank's part of the card that its point tables and one
+# slice's working set may take; the rest holds the front, the coefficient
+# tables, the scalar rows and a second circuit of the same size
+MSM_SHARE = 0.45
+# candidates within this share of the cheapest cost as much (the sweep's
+# spread); the smallest working set among them wins
+PLAN_TIE = 0.02
+# bytes of the resident point tables a point: a G1 row 64 (packed affine),
+# the G2 row 128
+TABLE_BYTES_G1_ROW, TABLE_BYTES_G2 = 64, 128
+# the working set of a slice entry while ops/msm._window_group runs, from
+# its code: per (window x table row) the sorted digits and the sort's
+# permutation (int64 each), the signs (int32), the gathered affine columns
+# (A x 32 B) and the all-positions prefix `within` (L x 32 B): 20 + 32 A
+# + 32 L; per table row the slice's digits of every window (int64) and
+# its phi image (A x 32 B). G1: A 2, L 3; G2's iso-twist: A 4, L 6.
+# PERF.md holds it against the card's peaks (within 2%).
+SLICE_BYTES_G1, SLICE_BYTES_G2 = 180, 340
+ROW_BYTES_G1, ROW_BYTES_G2 = 64, 128
+DIGIT_BYTES = 8
+# log2 of a slice's entries -> its measured geometries, fastest first:
+# (c, G, ns a GLV entry of the Prover's two MSMs: G1 on four rows, then
+# G2), from tools/geometry_sweep on an H100 80GB HBM3 at 700 W: 2^24
+# points in slices of 2^19-2^23 entries, whole axes below 2^19 entries
+# (the fastest c there; c = 16 wins at every slice width)
+MSM_COST = {
+    9: ((9, 5, 40481.251),),
+    11: ((9, 5, 10396.547),),
+    13: ((9, 5, 2732.582),),
+    15: ((13, 5, 569.284),),
+    17: ((14, 5, 159.311),),
+    19: ((16, 8, 44.531), (16, 4, 51.078), (16, 2, 82.325)),
+    20: ((16, 8, 40.455), (16, 4, 41.388), (16, 2, 48.300)),
+    21: ((16, 8, 35.183), (16, 4, 37.590), (16, 2, 38.598)),
+    22: ((16, 4, 33.249), (16, 8, 33.790), (16, 2, 35.701)),
+    23: ((16, 2, 32.289), (16, 8, 32.414), (16, 4, 32.798)),
+}
+# the narrowest slice: below 2^19 entries the times are whole axes', an
+# MSM bound by its launches, which slicing would multiply
+MIN_SLICE = 19
+GLV_WINDOW_BITS = 128       # the bits of a GLV half (ops/glv.GLV_BITS)
+
+
+class MSMPlan(NamedTuple):
+    segment: int      # entries a slice; 0: the whole axis
+    c: int            # window bits
+    G: int            # windows scanned at once
+
+
+def slice_bytes(c: int, G: int, rows: int = 4) -> int:
+    """The working set of a slice entry at window bits c and window
+    group G: the larger of the G1 MSM's on `rows` table rows and the G2
+    MSM's on one."""
+    digits = DIGIT_BYTES * -(-GLV_WINDOW_BITS // c)
+    return max(rows * (G * SLICE_BYTES_G1 + digits + ROW_BYTES_G1),
+               G * SLICE_BYTES_G2 + digits + ROW_BYTES_G2)
+
+
+def msm_plan(npts: int, rows: int = 4, ranks: int = 1,
+             memory: int = CARD_MEMORY) -> MSMPlan:
+    """The MSM geometry of a rank whose axis holds `npts` points (a whole
+    number of 256-point chunks), `rows` G1 table rows (4 in the Prover;
+    its G2 MSM has one), `ranks` ranks sharing a card of `memory` bytes.
+
+    A slice of 2^k entries (k >= MIN_SLICE) pads the axis to a whole
+    number of slices (parallel/pmsm.pad_len_sharded); the whole axis is
+    2 npts entries (GLV) and costs what MSM_COST gives the widest
+    measured slice no wider. A candidate costs its padded entries times
+    MSM_COST's time an entry, and fits when its point tables and its
+    working set (entries x slice_bytes) are within MSM_SHARE of memory /
+    ranks. Of the
+    candidates that fit and cost within PLAN_TIE of the cheapest, the
+    smallest working set wins. Raises ValueError when none fits."""
+    budget = MSM_SHARE * memory / ranks
+    per_point = rows * TABLE_BYTES_G1_ROW + TABLE_BYTES_G2
+    widths = sorted(MSM_COST)
+    cands = []
+    for k in widths + [None]:
+        if k is not None and k < MIN_SLICE and 1 << k < 2 * npts:
+            continue
+        if k is None or 1 << k >= 2 * npts:
+            seg, nmax, ent = 0, npts, 2 * npts
+            k = max([w for w in widths if 1 << w <= ent] or widths[:1])
+        else:
+            seg = 1 << k
+            nmax, ent = -(-npts // seg) * seg, seg
+        for c, g, ns in MSM_COST[k]:
+            work = ent * slice_bytes(c, g, rows)
+            if nmax * per_point + work <= budget:
+                cands.append((2 * nmax * ns, work, MSMPlan(seg, c, g)))
+        if seg == 0:
+            break
+    if not cands:
+        raise ValueError(f"msm_plan: no MSM slice of {npts} points on "
+                         f"{rows} G1 rows fits {MSM_SHARE} of "
+                         f"{memory} / {ranks} bytes")
+    least = min(cost for cost, _, _ in cands)
+    return min((work, plan) for cost, work, plan in cands
+               if cost <= least * (1 + PLAN_TIE))[1]
 
 
 def coordinator() -> Optional[str]:
@@ -83,11 +211,11 @@ def coordinator() -> Optional[str]:
 
 
 def nprocs() -> Optional[int]:
-    return _int_env("RSTPU_NPROCS") or None
+    return int_env("RSTPU_NPROCS") or None
 
 
 def proc_id() -> Optional[int]:
-    return _int_env("RSTPU_PROC_ID")
+    return int_env("RSTPU_PROC_ID")
 
 
 def shard() -> bool:

@@ -70,6 +70,15 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def total_memory(dev: torch.device) -> int:
+    """The card's memory in bytes; on the CPU one H100's
+    (config.CARD_MEMORY), so the CPU path plans the card's MSM geometry."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    from .config import CARD_MEMORY
+    return CARD_MEMORY
+
+
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0

@@ -216,6 +216,30 @@ def split_coefs(zk, counts, vals):
         file=None)
 
 
+def split_thirds(zk, device=None):
+    """split_coefs with every record v in three parts v c1, v c2 and
+    v (1 - c1 - c2) (Montgomery words, by fr_pointwise on `device`, the
+    card by default): K = 3 slots a row, the same proof for the same
+    (r, s). Raises if a nonzero record's three parts are not distinct."""
+    dev = D.resolve(device)
+    cw = [_t32(np.frombuffer((c * (1 << 256) % R_FR).to_bytes(32, "little"),
+                             "<u4").copy(), dev)
+          for c in (0x1234567 + (1 << 200), 0x89ABCDEF + (1 << 190))]
+    vals = _t32(zk.coef_val, dev)
+    p1 = FRONT.fr_pointwise("mul", vals, cw[0])
+    p2 = FRONT.fr_pointwise("mul", vals, cw[1])
+    p3 = FRONT.fr_pointwise("sub", FRONT.fr_pointwise("sub", vals, p1), p2)
+    nz = (vals != 0).any(dim=1)
+    if bool(((p1 == p2).all(dim=1) & nz).any()) or \
+            bool(((p1 == p3).all(dim=1) & nz).any()) or \
+            bool(((p2 == p3).all(dim=1) & nz).any()):
+        raise RuntimeError("a record's three parts are not distinct")
+    parts3 = torch.stack([p1, p2, p3], dim=1).reshape(-1, 8).cpu().numpy()
+    del vals, p1, p2, p3, nz
+    return split_coefs(zk, np.full(zk.n_coefs, 3, np.int64),
+                       parts3.view(np.uint32))
+
+
 def _t32(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32)
                             .view(np.int32)).to(dev)

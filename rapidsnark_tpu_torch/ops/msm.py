@@ -451,7 +451,8 @@ def fq_scale(t: torch.Tensor, spec, ext: int = 1) -> torch.Tensor:
 
 def best_window_bits(n: int, segment: int = 0) -> int:
     """The JAX package's cost-model choice of c (13 at 2^17+ points on the
-    unsegmented GLV path)."""
+    unsegmented GLV path), fitted on a TPU v5e; the port's Prover takes c
+    from config.msm_plan."""
     if not segment and n >= (1 << 17):
         return 13
     bits, neff = GLV.GLV_BITS, 2 * n
@@ -463,6 +464,15 @@ def best_window_bits(n: int, segment: int = 0) -> int:
         if best_cost is None or cost < best_cost:
             best, best_cost = c, cost
     return best
+
+
+def group_size(nwin: int, window_group: int) -> int:
+    """The windows msm scans at once: window_group, cut to the largest
+    divisor of the window count nwin that is no larger."""
+    g = min(window_group, nwin)
+    while nwin % g:
+        g -= 1
+    return g
 
 
 def pad_len(n: int) -> int:
@@ -648,9 +658,7 @@ def msm(curve, pts, scalars, c: int, window_group: int = 5,
     n = 2 * npts if glv else npts
     bits = GLV.GLV_BITS if glv else SCALAR_BITS
     nwin = -(-bits // c)
-    G_ = min(window_group, nwin)
-    while nwin % G_:
-        G_ -= 1
+    G_ = group_size(nwin, window_group)
     iso = getattr(curve, "iso_scan", None)
     sc = iso or curve
     if segment and segment < n:

@@ -50,6 +50,18 @@ def rank_device(device, rank: int) -> torch.device:
     return torch.device("cuda", idx)
 
 
+def ranks_on_device(mesh: "Mesh") -> int:
+    """The ranks of mesh's job that share its device, by rank_device's
+    map over this host's ranks (LOCAL_WORLD_SIZE, else the whole job):
+    every one on the CPU, rank % cards on a card."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE") or mesh.size)
+    if mesh.device.type != "cuda":
+        return local
+    cards = torch.cuda.device_count()
+    idx = mesh.device.index or 0
+    return local // cards + (idx < local % cards)
+
+
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,

@@ -26,9 +26,10 @@ four-step's N1 and N2. The MSM's shard (nmax/D points) and the NTT's
 h row before each rank cuts its MSM slice of the scalar rows. r and s
 are rank 0's. Every rank returns the same proof.
 
-Past 2^21 points the MSMs run segmented (config.msm_segment, or the
-`segment` argument), the point axis padded to whole segments: the scan's
-working set is then a slice's, whatever the wire count. The front
+The MSMs' geometry (the slice, c, the window group) is config.msm_plan's
+for the rank's axis and the card's memory, or the arguments' or the
+environment's; the point axis is padded to whole slices, so the scan's
+working set is a slice's, whatever the wire count. The front
 runs on packed words from end to end, so its working set is its outputs
 and the resident tables whatever the slots per row (K). An H100's 80 GB
 hold the tables, the front and the MSMs of a 2^24 prove (`prove(peaks=)`
@@ -148,20 +149,26 @@ class Prover:
         if zkey.r != R_FR:
             raise ValueError("zkey curve is not bn128")
         npts = max(self.domain, self.n_vars)
-        # the JAX package's segment rule on the padded point count, then
-        # the axis (with a mesh, every rank's slice of it) padded to whole
+        # the plan for the rank's axis (config.msm_plan), each of its
+        # choices overridden by the argument, then the environment; the
+        # axis (with a mesh, every rank's slice of it) is padded to whole
         # segments with (0, 0) points and zero scalars, so a circuit with
         # more wires than its domain is sliced too (the JAX package scans
         # its whole axis there); a segment that is not a multiple of the
         # scan chunk falls back to the whole-axis scan
         ranks = 1 if mesh is None else mesh.size
-        seg = (segment if segment is not None else
-               config.msm_segment(PM.pad_len_sharded(npts, ranks)))
+        self.plan = config.msm_plan(
+            PM.pad_len_sharded(npts, ranks) // ranks, 4,  # four G1 rows
+            1 if mesh is None else MH.ranks_on_device(mesh),
+            D.total_memory(dev))
+        seg = next(v for v in (segment, config.int_env("RSTPU_MSM_SEGMENT"),
+                               self.plan.segment) if v is not None)
         self.segment = seg if seg % MSM._CHUNK == 0 else 0
         self.nmax = PM.pad_len_sharded(npts, ranks, self.segment)
-        self.c_bits = (window_bits or config.window_bits()
-                       or MSM.best_window_bits(self.nmax, self.segment))
-        self.window_group = window_group or config.window_group()
+        self.c_bits = window_bits or config.window_bits() or self.plan.c
+        self.window_group = (window_group
+                             or config.int_env("RSTPU_WINDOW_GROUP")
+                             or self.plan.G)
         self.ntt_seq = config.ntt_sequential(self.power)
 
         # point tables: packed affine (rows, nmax, A, 8), the zkey layout;

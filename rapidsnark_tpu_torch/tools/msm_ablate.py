@@ -31,8 +31,8 @@ Tables and scalars are random residues from a seeded torch.Generator.
 
 Usage: python -m rapidsnark_tpu_torch.tools.msm_ablate
            [logn] [reps] [segment] [c] [B] [G]
-(segment 0: the whole axis; by default config.msm_segment's rule, c by
-ops/msm.best_window_bits, the window group G 5.)
+(segment 0: the whole axis; segment, c and the window group G by
+default config.msm_plan's for B rows on this device's memory.)
 """
 
 from __future__ import annotations
@@ -57,20 +57,18 @@ def main(argv=None, device=None) -> dict:
     logn = int(argv[0]) if len(argv) > 0 else 20
     reps = int(argv[1]) if len(argv) > 1 else 3
     npts = 1 << logn
-    segment = int(argv[2]) if len(argv) > 2 else config.msm_segment(npts)
-    c = int(argv[3]) if len(argv) > 3 else MSM.best_window_bits(npts,
-                                                                 segment)
     B = int(argv[4]) if len(argv) > 4 else 4
-    group = int(argv[5]) if len(argv) > 5 else 5
     dev = D.resolve(device)
+    plan = config.msm_plan(npts, B, 1, D.total_memory(dev))
+    segment = int(argv[2]) if len(argv) > 2 else plan.segment
+    c = int(argv[3]) if len(argv) > 3 else plan.c
+    group = int(argv[5]) if len(argv) > 5 else plan.G
     gen = generator(dev, 5)
     pts = random_words((B, npts, 2), P, gen, dev)
     sc = random_words((B, npts), R_FR, gen, dev)
     params = GLV.params_for(G1P)
     nwin = -(-GLV.GLV_BITS // c)
-    G = min(group, nwin)
-    while nwin % G:
-        G -= 1
+    G = MSM.group_size(nwin, group)
     ngroups = nwin // G
     seg = segment if segment and segment < 2 * npts else 2 * npts
     M = 1 << (c - 1)

@@ -2,7 +2,10 @@
 
 Counterpart of `tools/sweep_msm.py`: ops/msm.msm (window totals,
 combine=False, GLV on) on G1 and G2 at 2^logn points for each c, one
-line a configuration: curve, rows, c, windows, ms, points per second.
+line a configuration: curve, rows, c, windows, the window group the
+MSM ran (G cut to a divisor of the windows), ms, points per second
+and, on the card, the peak of allocated bytes over the timed calls
+beside the bytes of the tables and scalars.
 G1 runs `g1_rows` table rows at once (4 is the Prover's G1 call, 1 the
 JAX tool's single MSM), G2 one row on the iso-twist. Tables and scalars
 are random residues from a seeded torch.Generator (the adders take the
@@ -10,13 +13,15 @@ same time whatever the values).
 
 Usage: python -m rapidsnark_tpu_torch.tools.sweep_msm
            [g1|g2|both] [logn] [c,c,...] [segment] [reps] [g1_rows] [G]
-(segment 0: the whole axis; by default config.msm_segment's rule; the
-window group G 5.)
+(segment 0: the whole axis; segment and G by default config.msm_plan's
+for the G1 rows on this device's memory, printed beside each line.)
 """
 
 from __future__ import annotations
 
 import sys
+
+import torch
 
 from .. import config, device as D
 from ..ops import glv as GLV
@@ -33,11 +38,12 @@ def main(argv=None, device=None) -> dict:
     cs = [int(v) for v in argv[2].split(",")] if len(argv) > 2 else \
         [12, 13, 14, 15, 16]
     n = 1 << logn
-    segment = int(argv[3]) if len(argv) > 3 else config.msm_segment(n)
     reps = int(argv[4]) if len(argv) > 4 else 2
     g1_rows = int(argv[5]) if len(argv) > 5 else 1
-    group = int(argv[6]) if len(argv) > 6 else 5
     dev = D.resolve(device)
+    plan = config.msm_plan(n, g1_rows, 1, D.total_memory(dev))
+    segment = int(argv[3]) if len(argv) > 3 else plan.segment
+    group = int(argv[6]) if len(argv) > 6 else plan.G
     gen = generator(dev, 7)
     lines = []
     for curve_name in (["g1", "g2"] if which == "both" else [which]):
@@ -45,17 +51,27 @@ def main(argv=None, device=None) -> dict:
                           else (G2P, 4, 1))
         pts = random_words((rows, n, A), P, gen, dev)
         sc = random_words((rows, n), R_FR, gen, dev)
+        resident = (pts.numel() + sc.numel()) * 4
         for c in cs:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             dt = timeit(lambda: MSM.msm(curve, pts, sc, c, group,
                                         segment=segment), reps, dev)
             nwin = -(-GLV.GLV_BITS // c)
             line = {"curve": curve_name, "rows": rows, "logn": logn,
-                    "segment": segment, "c": c, "G": group, "windows": nwin,
-                    "ms": dt * 1e3, "points_per_s": rows * n / dt}
+                    "segment": segment, "c": c, "G": group,
+                    "G_ran": MSM.group_size(nwin, group), "windows": nwin,
+                    "ms": dt * 1e3, "points_per_s": rows * n / dt,
+                    "plan": plan._asdict(),
+                    "resident_bytes": resident, "peak_bytes": (
+                        torch.cuda.max_memory_allocated(dev)
+                        if dev.type == "cuda" else None)}
             lines.append(line)
             print(f"{curve_name} x{rows} 2^{logn} segment={segment} c={c} "
-                  f"W={nwin}: {dt * 1e3:.3f} ms  "
-                  f"{rows * n / dt:,.0f} pts/s", flush=True)
+                  f"W={nwin} G={line['G_ran']}: {dt * 1e3:.3f} ms  "
+                  f"{rows * n / dt:,.0f} pts/s  peak {line['peak_bytes']} B"
+                  f"  plan {tuple(plan)}", flush=True)
         del pts, sc
     return {"device": str(dev), "reps": reps, "lines": lines}
 

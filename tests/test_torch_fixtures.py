@@ -129,9 +129,12 @@ def test_fast_setup_scalars_match_jax_setup_2_8(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("logn", [22, 23, 24])
 def test_big_prove_config_matches_jax(logn, monkeypatch):
-    """segment, the sequential NTT, c and the window group the port's
-    Prover picks at 2^22-2^24 points are the JAX package's (2^19, on and
-    13 at 2^24)."""
+    """The port's copy of the JAX package's geometry at 2^22-2^24 points
+    (config.msm_segment, ntt_sequential, window_group and
+    ops/msm.best_window_bits: 2^19, on and 13 at 2^24) is the JAX
+    package's. The Prover's MSM geometry is config.msm_plan's
+    (tests/test_torch_msm_plan.py); chip_smoke.py runs this one beside
+    it."""
     for k in ("RSTPU_MSM_SEGMENT", "RSTPU_NTT_SEQ", "RSTPU_WINDOW_GROUP",
               "RSTPU_GLV"):
         monkeypatch.delenv(k, raising=False)
