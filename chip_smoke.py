@@ -8,13 +8,13 @@ them, or when run away from the repository. (`chip_smoke.py --rank ...`
 is one rank of the sharded phases, which start it themselves.) Phases,
 in order; any failure exits non-zero:
   1. the card's name and power limit, torch / CUDA versions, and the
-     build of the five kernel libraries (all nvcc processes started
+     build of the six kernel libraries (all nvcc processes started
      together) with each kernel's registers, stack frame and spills,
      `nvcc --version`, and per curve kernel the SASS counts of IMAD*,
      IADD3* and all instructions per Montgomery product (cuobjdump;
      skipped with a line where it is missing); fq_scale's registers and
      spills on a line of their own;
-  2. each of the twelve kernels against its plain PyTorch version on the
+  2. each of the fourteen kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed beside the plain version and the least time the card
@@ -66,7 +66,18 @@ in order; any failure exits non-zero:
      table's rescale at each prove's points: tools/bench_fq_scale's
      cases; and, checked only, a slice
      ending in a ragged block, specs mixing copies, negations and
-     products, 70,000 rows of one point, the negations on edge words).
+     products, 70,000 rows of one point, the negations on edge words);
+     the MSM's bucket ordering at every window group's shape of every
+     geometry above and of the committed sqchain64 and multiplier
+     (digit_sort's sorted keys, permutation, sign columns and bucket
+     boundaries; gather_cols's columns; _ps_at's two dma_gather
+     lookups), beside torch.sort + searchsorted, the advanced-index
+     gather and index_select + the move (library_ms), and digit_sort on
+     edge tables at c = 4, 8, 9, 13, 16 (all keys 0, keys 0 and 1, every
+     key 2^(c+1) - 1, one row of 256, descending keys, one key value a
+     tile); every prove below must call digit_sort and gather_cols once
+     per window group of each MSM call and dma_gather twice, each launch
+     counted, at shapes held here.
      `add`
      is timed
      alone (its C entry point back to back: a narrow launch takes less
@@ -160,7 +171,9 @@ in order; any failure exits non-zero:
      have run at a shape phase 2 checked; the warm prove has a fixed
      (r, s), and one more runs under torch.profiler (device kernels
      launched, the device-busy share of the prove and of the MSMs'
-     window); no plain field arithmetic or GLV.decompose may run on a
+     window, its device ms by the port's wrappers and torch's; a torch
+     sort or index gather in the MSMs fails the run); no plain field
+     arithmetic or GLV.decompose may run on a
      CUDA tensor in the CLI prove (set-up included), the warm prove and
      the K = 3 Prover's set-up and proves; fr_slot_acc on the Prover's
      own coefficient tables is held
@@ -197,7 +210,9 @@ per clock x 1.98 GHz = 16.7e12/s (H100 SXM; Hopper white paper). A
 Montgomery product of 8 x 8 32-bit limbs is counted as 264 IMADs (two
 64-product passes, a low and a high IMAD each, plus the 8 quotient
 digits); additions are not counted. dma_gather does no arithmetic: its
-bound is its bytes (rows read and written once, 4 bytes an index). The
+bound is its bytes (rows read and written once, 4 bytes an index), and
+so is gather_cols's; digit_sort's: an int64 key read, its sorted key,
+permutation and sign written as int32, 4 bytes a bucket boundary. The
 front kernels read each table once: fr_slot_acc a slot's 4-byte index
 and 32-byte value (only the value of an empty slot), the witness once,
 the spilled records' index and value, offsets and work list, and writes
@@ -249,6 +264,22 @@ SHARDED = ((LOGN_SEG, 2), (LOGN_SEG, 4), (LOGN_MAX, 1))
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the port's kernel functions (csrc/*.cu) by the wrapper that launches
+# them, first match wins: a profiled prove's device time by category
+PORT_KERNEL_OF = (
+    ("k_scan_g", "scan_cols_packed"), ("k_add_mixed", "add_mixed"),
+    ("k_add_g", "add"), ("k_sort_", "digit_sort"),
+    ("k_gather_cols", "gather_cols"), ("k_dma_gather", "dma_gather"),
+    ("k_glv_digits", "glv_digits"), ("k_fq_scale", "fq_scale"),
+    ("k_fused_pass", "ntt_fused_pass"), ("k_butterfly", "ntt_butterfly"),
+    ("k_tail", "ntt_tail"), ("k_pointwise", "fr_pointwise"),
+    ("k_slot_rows", "fr_slot_acc"), ("k_spill_", "fr_slot_acc"))
+# a torch (not a port) kernel that sorts or gathers by index: none may run
+# in a prove's MSMs
+TORCH_ORDER = re.compile(
+    r"(?i)sort|index_elementwise|indexselect|index_select|gather")
 
 
 # Montgomery products in the code of one thread of each curve kernel (one
@@ -416,15 +447,20 @@ def plain_calls():
 
 @contextlib.contextmanager
 def shape_log():
-    """The shapes every add, scan, fused NTT pass and fr_pointwise call
-    runs at while the block runs: yields {"add": Counter((G1?, lanes)),
-    "scan": Counter((G1?, K, lanes)), "pass": Counter((batch, n, lo, k,
-    dif, pre_mul?)), "pointwise": Counter((op, elements, b's elements))}."""
-    from rapidsnark_tpu_torch.ops import front, fused
+    """The shapes every add, scan, fused NTT pass, fr_pointwise call and
+    bucket-ordering call runs at while the block runs: yields {"add":
+    Counter((G1?, lanes)), "scan": Counter((G1?, K, lanes)), "pass":
+    Counter((batch, n, lo, k, dif, pre_mul?)), "pointwise": Counter((op,
+    elements, b's elements)), "sort": Counter((c, rows, n)) of digit_sort,
+    "gathercols": Counter((A, table rows, G, n)) of gather_cols,
+    "rowgather": Counter((table rows, words, m)) of dma_gather}."""
+    from rapidsnark_tpu_torch.ops import front, fused, msm
     from rapidsnark_tpu_torch.ops.curve import G1P
-    seen = {k: Counter() for k in ("add", "scan", "pass", "pointwise")}
+    seen = {k: Counter() for k in ("add", "scan", "pass", "pointwise",
+                                   "sort", "gathercols", "rowgather")}
     real = (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
-            front.fr_pointwise)
+            front.fr_pointwise, msm.digit_sort, msm.gather_cols,
+            fused.dma_gather)
 
     def add(curve, p, q):
         seen["add"][(curve is G1P, p.numel() // (p.shape[-2] * 8))] += 1
@@ -444,13 +480,32 @@ def shape_log():
         seen["pointwise"][(op, a.numel() // 8, b.numel() // 8)] += 1
         return real[3](op, a, b, c)
 
+    def digit_sort(digits, c):
+        n = digits.shape[-1]
+        seen["sort"][(c, digits.numel() // n, n)] += 1
+        return real[4](digits, c)
+
+    def gather_cols(pts, perm):
+        n, A = pts.shape[-3], pts.shape[-2]
+        seen["gathercols"][(A, pts.numel() // (n * A * 8), perm.shape[0],
+                            n)] += 1
+        return real[5](pts, perm)
+
+    def dma_gather(table, idx, blk=512, nsem=16):
+        seen["rowgather"][(table.shape[0], table.shape[1],
+                           idx.shape[0])] += 1
+        return real[6](table, idx, blk, nsem)
+
     (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
-     front.fr_pointwise) = (add, scan, fused_pass, pointwise)
+     front.fr_pointwise, msm.digit_sort, msm.gather_cols,
+     fused.dma_gather) = (add, scan, fused_pass, pointwise, digit_sort,
+                          gather_cols, dma_gather)
     try:
         yield seen
     finally:
         (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
-         front.fr_pointwise) = real
+         front.fr_pointwise, msm.digit_sort, msm.gather_cols,
+         fused.dma_gather) = real
 
 
 def rank_main(argv) -> int:
@@ -1372,6 +1427,177 @@ def main() -> int:
         del got
     del buckets, canon, edge_y
     torch.cuda.empty_cache()
+
+    # the MSM's bucket ordering at every window-group shape the run's
+    # proves give it (geo, and the committed sqchain64's and multiplier's
+    # small axes): digit_sort of G x rows rows of a slice's (or a whole
+    # axis's) encoded digits at the prove's c, gather_cols of the table by
+    # that permutation (a view of a slice, as the segmented MSM cuts it),
+    # and _ps_at's two lookups by dma_gather (the within and excl tables,
+    # the boundary index padded to whole blocks); then digit_sort on the
+    # edge tables at c = 4, 8, 9, 13, 16. The library calls: torch.sort
+    # (stable) + searchsorted; the advanced-index gather the MSM ran
+    # before (the plain version) and index_select + the move.
+    # Bounds: an int64 key read, its sorted key, permutation and sign
+    # written as int32 (20 B) and 4 B a boundary; a point row read and
+    # written and a 4 B index an entry; dma_gather's rows and indices.
+    small_geo = {}
+    for fname in ("sqchain64", "multiplier"):
+        zk = read_zkey(os.path.join(HERE, "tests", "fixtures",
+                                    f"{fname}.zkey"))
+        small_geo[fname] = plan_geo(PM.pad_len_sharded(
+            max(zk.domain_size, zk.n_vars), 1))
+        zk.close()
+        log(f"  MSM geometry {fname}: " + json.dumps(
+            {a: b for a, b in small_geo[fname].items()
+             if a not in ("lanes", "adds")}))
+    order_geo = {**geo, **small_geo}
+    sort_held, gather_held, lookup_held = set(), set(), set()
+    order = {}           # (kernel, geometry, curve) -> the case's key
+
+    def rand_digits(shape, cc):
+        """Encoded signed digits |d|*2 + (d<0), |d| <= 2^(cc-1), a
+        seventh of each row padding zeros."""
+        mag = torch.randint(0, (1 << (cc - 1)) + 1, shape, device=dev,
+                            generator=gen)
+        d = mag * 2 + torch.randint(0, 2, shape, device=dev,
+                                    generator=gen) * (mag > 0)
+        d[..., :shape[-1] // 7] = 0
+        return d
+
+    def sort_case(key, d, cc, timed_case=True):
+        got = MSM.digit_sort(d, cc)
+        want, plain_ms = timed_once(lambda: MSM.digit_sort_plain(d, cc))
+        torch.cuda.synchronize()
+        e = max(err(a, b) for a, b in zip(got, want))
+        del want
+        if not timed_case:
+            check_only("digit_sort", key, e)
+            return got
+        reps = 5 if d.numel() >= 1 << 22 else 20
+        ms, dev_t = timed2(lambda: MSM.digit_sort(d, cc), reps)
+        q = 2 * torch.arange((1 << (cc - 1)) + 1, device=dev) + 1
+        flat = d.reshape(-1, d.shape[-1])
+        qs = q.expand(flat.shape[0], q.shape[0]).contiguous()
+
+        def lib():
+            sd = torch.sort(flat, dim=-1, stable=True)[0]
+            return torch.searchsorted(sd, qs, right=True)
+
+        record("digit_sort", key, e, ms, dev_t, plain_ms,
+               20 * d.numel() + 4 * got[3].numel(), 0,
+               library_ms=device_time(lib, reps)[0],
+               passes=len(MSM.sort_plan(cc, d.shape[-1], flat.shape[0])
+                          .passes))
+        return got
+
+    for gk, g in order_geo.items():
+        n_, cc, gg = g["width"], g["c"], g["G"]
+        sliced = g["slices"] > 1
+        blk = MSM._ROW_GATHER_BLK
+        for grp, rows_, A_, L_ in (("g1", 4, 2, 3), ("g2", 1, 4, 6)):
+            skey = f"{grp} {gg} x {rows_} x {n_} c={cc}"
+            gkey = f"{grp} {gg} x {rows_} x {n_} A={A_}" + (
+                " a slice view" if sliced else "")
+            order[("digit_sort", gk, grp)] = skey
+            order[("gather_cols", gk, grp)] = gkey
+            mk = -(-gg * rows_ * ((1 << (cc - 1)) + 1) // blk) * blk
+            lk = ((gg * rows_ * n_, 8 * L_, mk),
+                  (gg * rows_ * (n_ // 256), 8 * L_, mk))
+            order[("dma_gather", gk, grp)] = f"lookup within {lk[0]}"
+            if (cc, gg * rows_, n_) in sort_held:
+                continue
+            sort_held.add((cc, gg * rows_, n_))
+            gather_held.add((A_, rows_, gg, n_))
+            lookup_held.update(lk)
+            d = rand_digits((gg, rows_, n_), cc)
+            perm = sort_case(skey, d, cc)[1]
+            del d
+            tab = fe_card(P, (rows_, 2 * n_ if sliced else n_, A_))
+            pts = tab[:, n_:] if sliced else tab
+            got = MSM.gather_cols(pts, perm)
+            want, plain_ms = timed_once(lambda: MSM.gather_cols_plain(
+                pts, perm))
+            torch.cuda.synchronize()
+            e = err(got, want)
+            del got, want
+            reps = 5 if perm.numel() >= 1 << 22 else 20
+            ms, dev_t = timed2(lambda: MSM.gather_cols(pts, perm), reps)
+            rows64 = tab.reshape(-1, 8 * A_)
+            flat = (perm + torch.arange(rows_, device=dev,
+                                        dtype=torch.int32)[None, :, None]
+                    * tab.shape[1] + (n_ if sliced else 0)).reshape(-1).long()
+            nbk = n_ // 256
+
+            def take_move():
+                t = torch.index_select(rows64, 0, flat)
+                return t.reshape(gg, rows_, nbk, 256, A_, 8).movedim(
+                    3, 0).contiguous()
+
+            plain_dev = device_time(lambda: MSM.gather_cols_plain(pts, perm),
+                                    reps)[0]
+            record("gather_cols", gkey, e, ms, dev_t, plain_ms,
+                   perm.numel() * (64 * A_ + 4), 0, library_ms=plain_dev,
+                   index_select_move_ms=device_time(take_move, reps)[0])
+            del tab, pts, perm, rows64, flat
+            torch.cuda.empty_cache()
+            # _ps_at's lookups: tables of within's (C, G, rows, nb) and
+            # excl's (G, rows, nb) points, the boundary index padded
+            m0 = gg * rows_ * ((1 << (cc - 1)) + 1)
+            for what, (trows, words, mpad) in zip(("within", "excl"), lk):
+                table = torch.empty((trows, words), dtype=torch.int32,
+                                    device=dev)
+                idx = torch.randint(0, trows, (m0,), device=dev,
+                                    generator=gen, dtype=torch.int64).to(
+                                        torch.int32)
+                padded = torch.cat([idx, idx.new_zeros(mpad - m0)])
+                got = MSM._row_gather(table, idx)
+                want, plain_ms = timed_once(
+                    lambda: fused.dma_gather_plain(table, idx))
+                torch.cuda.synchronize()
+                e = err(got, want)
+                del got, want
+
+                def kern():
+                    return fused.dma_gather(table, padded,
+                                            blk=MSM._ROW_GATHER_BLK)
+
+                ms, dev_t = timed2(kern, 20)
+                if not torch.equal(kern()[:m0], MSM._row_gather(table, idx)):
+                    failures.append(f"dma_gather lookup {what}: the padded "
+                                    "launch differs from _row_gather")
+                lib = lambda: torch.index_select(  # noqa: E731
+                    table, 0, idx.long())
+                # a table row is read once however often it is looked up
+                record("dma_gather", f"lookup {what} {(trows, words, mpad)}",
+                       e, ms, dev_t, plain_ms,
+                       (min(trows, mpad) + mpad) * words * 4 + 4 * mpad, 0,
+                       library_ms=device_time(lib, 20)[0])
+                del table, idx, padded
+            torch.cuda.empty_cache()
+    for cc in (4, 8, 9, 13, 16):
+        top = 1 << (cc + 1)
+        n_tile = 3 * MSM.SORT_TILE + 256
+        tiles = (torch.arange(n_tile, device=dev) // MSM.SORT_TILE * 5
+                 + 1) % top
+        for kind, d in (
+                ("all keys 0", torch.zeros((2, 4, 4096), dtype=torch.int64,
+                                           device=dev)),
+                ("keys 0 and 1", torch.randint(0, 2, (2, 4, 4096),
+                                               device=dev, generator=gen)),
+                ("every key 2^(c+1)-1", torch.full((2, 4, 4096), top - 1,
+                                                   dtype=torch.int64,
+                                                   device=dev)),
+                ("one row of 256", torch.randint(0, top, (1, 256),
+                                                 device=dev, generator=gen)),
+                ("descending keys", torch.sort(torch.randint(
+                    0, top, (2, 4, 4352), device=dev, generator=gen),
+                    descending=True)[0]),
+                ("one key value a tile", tiles.expand(2, 4, n_tile)
+                 .contiguous())):
+            sort_case(f"edge {kind} c={cc} {tuple(d.shape)}", d, cc,
+                      timed_case=False)
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -1515,11 +1741,21 @@ def main() -> int:
             inside = [e for e in dev_evs if lo <= e.time_range.start < hi]
             by_name = Counter()           # names cut to 80 characters
             port = Counter()              # the port's kernels, k_*
+            cats = Counter()              # by wrapper; "torch" the rest
+            torch_order = Counter()       # torch sorts and index gathers
             for e in inside:
-                by_name[e.name[:80]] += e.time_range.end - e.time_range.start
+                dur = e.time_range.end - e.time_range.start
+                by_name[e.name[:80]] += dur
                 m = re.search(r"\b(k_\w+)", e.name)
                 if m:
-                    port[m.group(1)] += e.time_range.end - e.time_range.start
+                    port[m.group(1)] += dur
+                    cats[next((w for pre, w in PORT_KERNEL_OF
+                               if m.group(1).startswith(pre)),
+                              m.group(1))] += dur
+                elif kernel(e):
+                    cats["torch"] += dur
+                    if TORCH_ORDER.search(e.name):
+                        torch_order[e.name[:80]] += dur
             out[tag] = {
                 "window_ms": (hi - lo) / 1e3,
                 "kernel_launches": sum(1 for e in inside if kernel(e)),
@@ -1529,12 +1765,19 @@ def main() -> int:
                 "top_kernels_ms": {k: v / 1e3
                                    for k, v in by_name.most_common(15)},
                 "port_kernels_ms": {k: v / 1e3
-                                    for k, v in port.most_common()}}
+                                    for k, v in port.most_common()},
+                "categories_ms": {k: v / 1e3 for k, v in cats.most_common()},
+                "torch_sort_or_gather_ms": {
+                    k: v / 1e3 for k, v in torch_order.most_common()}}
         out["post_processing_s"] = time.perf_counter() - t1
         if not dev_evs:
             log("  profiler: no device activity in the trace; the idle "
                 "share is not measured")
         log(f"  profiled prove: {json.dumps(out)}")
+        if out.get("msms", {}).get("torch_sort_or_gather_ms"):
+            raise RuntimeError("a torch sort or index gather ran in the "
+                               "MSMs: "
+                               f"{out['msms']['torch_sort_or_gather_ms']}")
         return out
 
     def front_rows(prover, wpath):
@@ -1571,7 +1814,8 @@ def main() -> int:
     # while either runs
     FRONT_KERNELS = ("fr_slot_acc", "fr_pointwise")
     # every prove runs the MSM's preparation kernels too
-    PROVE_KERNELS = FRONT_KERNELS + ("glv_digits", "fq_scale")
+    PROVE_KERNELS = FRONT_KERNELS + ("glv_digits", "fq_scale", "digit_sort",
+                                     "gather_cols", "dma_gather")
     guarded = [(FF.FieldOps, n) for n in (
         "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
         "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx", "from_mont",
@@ -1638,14 +1882,50 @@ def main() -> int:
 
     fixtures._evaluations = evaluations_peak
 
+    def order_check(seen_, launches, what, g=None):
+        """A prove's bucket ordering: digit_sort and gather_cols once per
+        window group per MSM call (as often as scan_cols_packed) and
+        _ps_at's two dma_gather lookups a group, each launch counted by
+        its wrapper, every call at a shape phase 2 held; with geometry g,
+        the very shapes and calls of its slices and window groups."""
+        calls = {k: sum(seen_[k].values())
+                 for k in ("sort", "gathercols", "rowgather")}
+        ns = calls["sort"]
+        got = {k: launches[k] for k in ("digit_sort", "gather_cols",
+                                        "dma_gather", "scan_cols_packed")}
+        ok = ns > 0 and calls == {"sort": ns, "gathercols": ns,
+                                  "rowgather": 2 * ns} and got == {
+            "digit_sort": ns, "gather_cols": ns, "dma_gather": 2 * ns,
+            "scan_cols_packed": ns}
+        bad = sorted((set(seen_["sort"]) - sort_held)
+                     | (set(seen_["gathercols"]) - gather_held)
+                     | (set(seen_["rowgather"]) - lookup_held))
+        if g is not None:
+            k = g["slices"] * g["groups"]
+            ok = ok and seen_["sort"] == Counter(
+                {(g["c"], g["G"] * r, g["width"]): k for r in (4, 1)}) \
+                and seen_["gathercols"] == Counter(
+                    {(a, r, g["G"], g["width"]): k
+                     for a, r in ((2, 4), (4, 1))})
+        if not ok or bad:
+            raise RuntimeError(
+                f"{what}: bucket ordering calls {calls}, launches {got}, "
+                f"shapes {dict(seen_['sort'])} {dict(seen_['gathercols'])} "
+                f"{dict(seen_['rowgather'])}; not held in phase 2: {bad}")
+        log(f"  {what}: digit_sort and gather_cols {ns} calls and launches "
+            f"each, {2 * ns} dma_gather lookups, at shapes phase 2 held")
+
     log("phase3: prove tests/fixtures/sqchain64")
     fx = os.path.join(HERE, "tests", "fixtures")
     D.reset_counts()
-    _, _, prover = prove_and_verify(os.path.join(fx, "sqchain64.zkey"),
-                                    os.path.join(fx, "sqchain64.wtns"),
-                                    "sqchain64")
+    with shape_log() as seen64:
+        _, _, prover = prove_and_verify(os.path.join(fx, "sqchain64.zkey"),
+                                        os.path.join(fx, "sqchain64.wtns"),
+                                        "sqchain64")
     small_counts = dict(D.counts)
     log("  launches:", json.dumps(small_counts))
+    order_check(seen64, small_counts, "the sqchain64 prove",
+                small_geo["sqchain64"])
     need(small_counts, ("ntt_fused_pass",) + PROVE_KERNELS,
          "the sqchain64 prove")
     if small_counts["ntt_butterfly"] or small_counts["ntt_fused_pass"] != 2:
@@ -1693,10 +1973,13 @@ def main() -> int:
         D.reset_counts()
         dp = Prover(dz, device="cuda")
         t0 = time.perf_counter()
-        proof, pub = dp.prove(mwt.values, r=r_fix, s=s_fix)
+        with shape_log() as seen_m:
+            proof, pub = dp.prove(mwt.values, r=r_fix, s=s_fix)
         dt = time.perf_counter() - t0
         dcounts = dict(D.counts)
         need(dcounts, PROVE_KERNELS, f"the multiplier prove with {k} parts")
+        order_check(seen_m, dcounts, f"the multiplier prove with {k} parts",
+                    small_geo["multiplier"])
         ref_zk = zkey_to_ref(dz)
         want = ref_prove(ref_zk, words_to_ints(mwt.values), r=r_fix, s=s_fix)
         if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
@@ -1882,6 +2165,7 @@ def main() -> int:
             f"shapes phase 2 checked: "
             f"{json.dumps([list(k) + [v] for k, v in seen['pass'].items()])}")
         prep_launches(counts, slices, groups, f"the {gk} prove", cold)
+        order_check(seen, counts, f"the {gk} prove", g)
         need(counts, ("add", "scan_cols_packed", "ntt_fused_pass")
              + PROVE_KERNELS, f"the {gk} prove")
         return slices, groups
@@ -1927,6 +2211,8 @@ def main() -> int:
             raise RuntimeError(f"a rank's fused NTT passes ran at "
                                f"{dict(seen_['pass'])}, phase 2 held "
                                f"{sorted(ntt_checked)}")
+        order_check(seen_, line["launches"], f"a rank of 2^{logn} over {nd}",
+                    g)
         row = ("mul", 3 * four["local_domain"], four["local_domain"])
         if seen_["pointwise"][row] != 3 or row not in pointwise_held:
             raise RuntimeError(f"a rank's row products ran at "
@@ -2464,8 +2750,8 @@ def main() -> int:
     for f in (zp, wp):
         os.remove(f)
     log(json.dumps({f"prove_2^{LOGN_SEG}_wide": wide_out}))
-    log(f"phase8: generate sqchain{1 << LOGN_SEQ} on the card (slices of "
-        "2^20, sequential NTTs with a 3-bit top pass)")
+    log(f"phase8: generate sqchain{1 << LOGN_SEQ} on the card (the plan's "
+        "slices, sequential NTTs with a 3-bit top pass)")
     seq_out, _, _ = prove_size(LOGN_SEQ, "seq", f"2^{LOGN_SEQ}",
                                compare=True)
     log(json.dumps({f"prove_2^{LOGN_SEQ}": seq_out}))
@@ -2788,7 +3074,8 @@ def main() -> int:
         "add_mixed": ("csrc/curve.cu", "rapidsnark_tpu/ops/fused.py:170",
                       gen_counts, "g2"),
         "dma_gather": ("csrc/gather.cu", "tools/bench_dma_gather.py:32",
-                       tool_counts, f"2^{tools_logn} R=16 perm"),
+                       big_counts, order[("dma_gather", f"2^{LOGN_BIG}",
+                                          "g1")]),
         "fr_slot_acc": ("csrc/front.cu", "rapidsnark_tpu/prover.py:578",
                         big_counts, f"2^{LOGN_BIG} K=1"),
         "fr_pointwise": ("csrc/front.cu", "rapidsnark_tpu/prover.py:686",
@@ -2798,6 +3085,12 @@ def main() -> int:
                        prep[("glv_digits", f"2^{LOGN_BIG}", "g1")]),
         "fq_scale": ("csrc/msm.cu", "rapidsnark_tpu/ops/msm.py:535",
                      big_counts, prep[("fq_scale", f"2^{LOGN_BIG}", "g1")]),
+        "digit_sort": ("csrc/sort.cu", "rapidsnark_tpu/ops/msm.py:482",
+                       big_counts, order[("digit_sort", f"2^{LOGN_BIG}",
+                                          "g1")]),
+        "gather_cols": ("csrc/gather.cu", "rapidsnark_tpu/ops/msm.py:117",
+                        big_counts, order[("gather_cols", f"2^{LOGN_BIG}",
+                                           "g1")]),
     }
     runs = {"sqchain64": small_counts, f"2^{LOGN_BIG}": big_counts,
             f"2^{LOGN_BIG} per-stage": stage_counts,

@@ -107,8 +107,11 @@ def ntt_sequential(power: int) -> bool:
 CARD_MEMORY = 85_017_493_504
 # the share of a rank's part of the card that its point tables and one
 # slice's working set may take; the rest holds the front, the coefficient
-# tables, the scalar rows and a second circuit of the same size
-MSM_SHARE = 0.45
+# tables, the scalar rows and a second circuit of the same size. Beside
+# the tables and the slice, a 2^24 prove's G1 stage holds 7.6 / 10.0 GB
+# more at K = 1 / 3 (the scalar rows and stack, the coefficient tables:
+# PERF.md), so 35% of an 85 GB card keeps that stage within 40 GB
+MSM_SHARE = 0.35
 # candidates within this share of the cheapest cost as much (the sweep's
 # spread); the smallest working set among them wins
 PLAN_TIE = 0.02
@@ -116,13 +119,18 @@ PLAN_TIE = 0.02
 # the G2 row 128
 TABLE_BYTES_G1_ROW, TABLE_BYTES_G2 = 64, 128
 # the working set of a slice entry while ops/msm._window_group runs, from
-# its code: per (window x table row) the sorted digits and the sort's
-# permutation (int64 each), the signs (int32), the gathered affine columns
-# (A x 32 B) and the all-positions prefix `within` (L x 32 B): 20 + 32 A
-# + 32 L; per table row the slice's digits of every window (int64) and
-# its phi image (A x 32 B). G1: A 2, L 3; G2's iso-twist: A 4, L 6.
-# PERF.md holds it against the card's peaks (within 2%).
-SLICE_BYTES_G1, SLICE_BYTES_G2 = 180, 340
+# its code: per (window x table row) the largest of its three steps.
+# digit_sort: its int64 input is the caller's; the sorted keys, the
+# permutation and the signs (int32 each), the first radix pass's keys
+# and values (int32 each) and the histogram (4 B a digit a tile of 4096
+# keys: 0.5 B a key at 9 bits): 20.5 B. gather_cols: the permutation and
+# the signs (the keys are dropped) and the gathered affine columns (A x
+# 32 B): 8 + 32 A. The scan: the signs, the columns and the
+# all-positions prefix `within` (L x 32 B): 4 + 32 A + 32 L, the largest;
+# per table row the slice's digits of every window (int64) and its phi
+# image (A x 32 B). G1: A 2, L 3; G2's iso-twist: A 4, L 6. PERF.md holds
+# it against the card's peaks.
+SLICE_BYTES_G1, SLICE_BYTES_G2 = 164, 324
 ROW_BYTES_G1, ROW_BYTES_G2 = 64, 128
 DIGIT_BYTES = 8
 # log2 of a slice's entries -> its measured geometries, fastest first:
@@ -131,16 +139,16 @@ DIGIT_BYTES = 8
 # points in slices of 2^19-2^23 entries, whole axes below 2^19 entries
 # (the fastest c there; c = 16 wins at every slice width)
 MSM_COST = {
-    9: ((9, 5, 40481.251),),
-    11: ((9, 5, 10396.547),),
-    13: ((9, 5, 2732.582),),
-    15: ((13, 5, 569.284),),
-    17: ((14, 5, 159.311),),
-    19: ((16, 8, 44.531), (16, 4, 51.078), (16, 2, 82.325)),
-    20: ((16, 8, 40.455), (16, 4, 41.388), (16, 2, 48.300)),
-    21: ((16, 8, 35.183), (16, 4, 37.590), (16, 2, 38.598)),
-    22: ((16, 4, 33.249), (16, 8, 33.790), (16, 2, 35.701)),
-    23: ((16, 2, 32.289), (16, 8, 32.414), (16, 4, 32.798)),
+    9: ((9, 5, 37941.625),),
+    11: ((9, 5, 9618.047),),
+    13: ((9, 5, 2385.109),),
+    15: ((13, 5, 628.338),),
+    17: ((13, 5, 161.958),),
+    19: ((16, 8, 35.129), (16, 4, 45.655), (16, 2, 70.829)),
+    20: ((16, 8, 30.128), (16, 4, 31.156), (16, 2, 38.379)),
+    21: ((16, 8, 25.416), (16, 4, 28.210), (16, 2, 29.238)),
+    22: ((16, 8, 23.918), (16, 4, 24.533), (16, 2, 27.338)),
+    23: ((16, 8, 22.923), (16, 4, 23.460), (16, 2, 24.129)),
 }
 # the narrowest slice: below 2^19 entries the times are whole axes', an
 # MSM bound by its launches, which slicing would multiply

@@ -24,13 +24,14 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build", "rapidsnark_tpu_torch")
-SOURCES = ("curve", "ntt", "gather", "front", "msm")
+SOURCES = ("curve", "ntt", "gather", "front", "msm", "sort")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("add", "scan_cols_packed", "ntt_fused_pass", "ntt_butterfly",
            "ntt_tail", "add_mixed_packed", "add_mixed", "dma_gather",
-           "fr_slot_acc", "fr_pointwise", "glv_digits", "fq_scale")
+           "fr_slot_acc", "fr_pointwise", "glv_digits", "fq_scale",
+           "digit_sort", "gather_cols")
 # launches of each kernel since the last reset_counts(); a wrapper adds
 # one for each launch it makes and nowhere else
 counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -56,6 +57,9 @@ _ARGTYPES = {
     "rs_glv_digits": [_VP, _LL, _LL, _LL, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     "rs_fq_scale": [_VP, _LL, _LL, _LL, _I, ctypes.c_ulonglong, _I, _VP, _VP,
                     _VP],
+    "rs_digit_sort": [_VP, _LL, _LL, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                      _LL, _VP, _LL, _VP],
+    "rs_gather_cols": [_VP, _LL, _LL, _LL, _I, _VP, _LL, _VP, _VP],
 }
 
 

@@ -19,12 +19,19 @@ Points are packed element-major int32 tensors: affine tables
 zkey's own point layout; projective points (..., L, 8), L = 3 / 6.
 Scalars are (*batch, n, 8) packed words of plain little-endian integers.
 
-The scalars' preparation (GLV split and signed-digit recode) and the
-points' (phi image, negation, the iso-twist's scaling) run on two
-hand-written kernels of csrc/msm.cu, each beside its plain version:
+The scalars' preparation (GLV split and signed-digit recode), the
+points' (phi image, negation, the iso-twist's scaling) and the bucket
+ordering run on hand-written kernels, each beside its plain version:
 
-  glv_digits  GLV halves of the scalars and their encoded signed digits
-  fq_scale    packed Fq / Fq2 coordinates times a constant, or negated
+  glv_digits   GLV halves of the scalars and their encoded signed digits
+               (csrc/msm.cu)
+  fq_scale     packed Fq / Fq2 coordinates times a constant, or negated
+               (csrc/msm.cu)
+  digit_sort   the stable sort of a window group's digits, its
+               permutation, the sign columns and the bucket boundaries
+               (csrc/sort.cu)
+  gather_cols  the sorted points in the scan's column layout
+               (csrc/gather.cu)
 
 For a tensor on the CPU a wrapper runs the plain PyTorch version; for a
 CUDA tensor it launches the kernel on the current stream and counts the
@@ -49,6 +56,7 @@ from .field import FQ
 
 SCALAR_BITS = 256
 _CHUNK = 256  # columns of the sequential chunk scan (one kernel launch)
+_ROW_GATHER_BLK = 256  # dma_gather's rows a block in _ps_at's lookups
 
 
 # ---------------------------------------------------------------------------
@@ -138,15 +146,34 @@ def _chunked_prefix(curve, cols, sign, batch: Tuple[int, ...], nb: int):
     return within, excl
 
 
+def _row_gather(table, idx):
+    """table (rows, R) int32 rows by idx (m,) int32 through
+    ops/fused.dma_gather, the index padded to whole blocks of the kernel
+    with row 0: (m, R)."""
+    m = idx.shape[0]
+    pad = -m % _ROW_GATHER_BLK
+    if pad:
+        idx = torch.cat([idx, idx.new_zeros(pad)])
+    return fused.dma_gather(table, idx, blk=_ROW_GATHER_BLK)[:m]
+
+
 def _ps_at(curve, within, excl, k):
-    """PS(k) = sum of the first k sorted points; k: (*batch, m) int64."""
-    pos = torch.clamp(k - 1, min=0)
-    cidx = pos % _CHUNK
-    nbidx = pos // _CHUNK
-    bidx = _batch_index(tuple(k.shape), k.dim() - 1, k.device)
-    w = within[(cidx, *bidx, nbidx)]
-    e = excl[(*bidx, nbidx)]
-    s = fused.add(curve, w.contiguous(), e.contiguous())
+    """PS(k) = sum of the first k sorted points; k: (*batch, m) integer
+    counts (digit_sort's boundaries). The two lookups are row gathers
+    (dma_gather) of within's (C, *batch, nb) and excl's (*batch, nb)
+    points."""
+    bshape, m = tuple(k.shape[:-1]), k.shape[-1]
+    L = within.shape[-2]
+    nb = excl.shape[-3]
+    nrows = excl.numel() // (nb * L * 8)
+    pos = torch.clamp(k.to(torch.int32).reshape(nrows, m) - 1, min=0)
+    erow = torch.arange(nrows, dtype=torch.int32, device=k.device)[:, None] \
+        * nb + pos // _CHUNK
+    wrow = (pos % _CHUNK) * (nrows * nb) + erow
+    w = _row_gather(within.reshape(-1, L * 8), wrow.reshape(-1))
+    e = _row_gather(excl.reshape(-1, L * 8), erow.reshape(-1))
+    shape = bshape + (m, L, 8)
+    s = fused.add(curve, w.view(shape), e.view(shape))
     return _select(k == 0, point_inf(curve, tuple(k.shape), k.device), s)
 
 
@@ -483,18 +510,155 @@ def pad_len(n: int) -> int:
 # MSM core
 # ---------------------------------------------------------------------------
 
-def gather_cols(pts, perm):
-    """The MSM's point gather, straight into the scan's column layout.
+# digit_sort's plan (csrc/sort.cu SORT_TILE, SORT_MAX_BITS, SCAN_CHUNK)
+SORT_TILE = 4096        # keys a block ranks at once
+SORT_MAX_BITS = 10      # bits of the widest radix pass
+SCAN_CHUNK = 4096       # histogram words a block of the scan takes
 
-    pts: packed affine (*b, n, A, 8); perm: (G, *b, n) int64 entry
-    indices (the sort's permutation). Returns (C, G, *b, n/C, A, 8)
-    with column c of chunk k holding pts[perm[k*C + c]]."""
+
+class SortPlan(NamedTuple):
+    """digit_sort's launch for rows of n keys of c + 1 bits: `passes`
+    (shift, bits) low bits first, `tiles` a row, the histogram's and the
+    scan's chunk sums' words (the widest pass's; the passes share them)
+    and the workspace's bytes (with two passes, the first pass's keys and
+    values too)."""
+    passes: tuple
+    tiles: int
+    hist_words: int
+    part_words: int
+    workspace_bytes: int
+
+
+def sort_plan(c: int, n: int, rows: int) -> SortPlan:
+    if not 1 <= c <= 16:
+        raise ValueError(f"digit_sort: window bits {c} not in 1..16")
+    bits = c + 1
+    npass = -(-bits // SORT_MAX_BITS)
+    b0 = -(-bits // npass)
+    passes = tuple((p * b0, min(b0, bits - p * b0)) for p in range(npass))
+    tiles = -(-n // SORT_TILE)
+    hist = rows * (1 << b0) * tiles
+    part = -(-hist // SCAN_CHUNK)
+    ping = 8 * rows * n if npass > 1 else 0
+    return SortPlan(passes, tiles, hist, part, ping + 4 * (hist + part))
+
+
+def digit_sort_plain(digits, c: int):
+    bshape, n = tuple(digits.shape[:-1]), digits.shape[-1]
+    M = 1 << (c - 1)
+    keys, perm = torch.sort(digits, dim=-1, stable=True)
+    sign = (keys & 1).to(torch.int32).reshape(
+        bshape + (n // _CHUNK, _CHUNK)).movedim(-1, 0).contiguous()
+    # bucket boundary of |d| <= j in the encoded order: key 2j+1
+    queries = 2 * torch.arange(M + 1, device=digits.device) + 1
+    flat = keys.reshape(-1, n)
+    cum = torch.searchsorted(flat, queries.expand(flat.shape[0], M + 1)
+                             .contiguous(), right=True, out_int32=True)
+    return (keys.to(torch.int32), perm.to(torch.int32), sign,
+            cum.reshape(bshape + (M + 1,)))
+
+
+def digit_sort(digits: torch.Tensor, c: int):
+    """The bucket order of a window group's encoded digits.
+
+    digits: (G, *b, n) int64 encoded signed digits |d|*2 + (d<0), each
+    below 2^(c+1) (glv_digits), n a multiple of 256. Returns, row by row
+    (a row: one window of one table row):
+      keys  (G, *b, n) int32, the digits in ascending order, stable;
+      perm  (G, *b, n) int32, the entry each sorted key came from;
+      sign  (256, G, *b, n/256) int32, keys & 1 in the scan's column
+            layout (column c of chunk k holds sorted entry k*256 + c);
+      cum   (G, *b, 2^(c-1) + 1) int32, the count of keys <= 2j+1: the
+            end of bucket |d| <= j.
+    Keys are checked against 2^(c+1) on the CPU only (the card would
+    need a host sync)."""
+    if not 1 <= c <= 16:
+        raise ValueError(f"digit_sort: window bits {c} not in 1..16")
+    if digits.dtype != torch.int64 or digits.dim() < 1:
+        raise ValueError(f"digit_sort: expected (..., n) torch.int64 digits,"
+                         f" got {tuple(digits.shape)} {digits.dtype}")
+    n = digits.shape[-1]
+    if n < _CHUNK or n % _CHUNK:
+        raise ValueError(f"digit_sort: rows of {n} keys are not whole "
+                         f"chunks of {_CHUNK}")
+    rows = digits.numel() // n
+    if rows * n >= 1 << 31:
+        raise ValueError(f"digit_sort: {rows} x {n} keys pass 2^31")
+    if digits.device.type == "cpu":
+        if digits.numel() and (int(digits.min()) < 0
+                               or int(digits.max()) >> (c + 1)):
+            raise ValueError(f"digit_sort: a key outside 0 .. 2^{c + 1} - 1")
+        return digit_sort_plain(digits, c)
+    D.require(digits, "digit_sort.digits", torch.int64)
+    plan = sort_plan(c, n, rows)
+    bshape = tuple(digits.shape[:-1])
+    dev = digits.device
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    keys, perm = i32(*digits.shape), i32(*digits.shape)
+    sign = i32(_CHUNK, *bshape, n // _CHUNK)
+    cum = i32(*bshape, (1 << (c - 1)) + 1)
+    two = len(plan.passes) > 1
+    tk, tv = (i32(rows, n), i32(rows, n)) if two else (None, None)
+    hist, part = i32(plan.hist_words), i32(plan.part_words)
+    rc = D.lib("sort").rs_digit_sort(
+        digits.data_ptr(), rows, n, c, keys.data_ptr(), perm.data_ptr(),
+        sign.data_ptr(), cum.data_ptr(), tk.data_ptr() if two else None,
+        tv.data_ptr() if two else None, hist.data_ptr(), plan.hist_words,
+        part.data_ptr(), plan.part_words, D.stream(digits))
+    D.check(rc, "digit_sort")
+    D.count("digit_sort")
+    return keys, perm, sign, cum
+
+
+def gather_cols_plain(pts, perm):
     bshape = tuple(perm.shape[:-1])
     nb = perm.shape[-1] // _CHUNK
     pc = perm.reshape(bshape + (nb, _CHUNK)).movedim(-1, 0)
     bidx = _batch_index((_CHUNK,) + bshape + (nb,), pts.dim() - 1,
                         pts.device)[2:]
     return pts[(*bidx, pc)].contiguous()
+
+
+def gather_cols(pts, perm):
+    """The MSM's point gather, straight into the scan's column layout.
+
+    pts: packed affine (*b, n, A, 8) whose rows of n entries are each
+    contiguous; perm: (G, *b, n) entry indices (the sort's permutation;
+    int32 on the card). Returns (C, G, *b, n/C, A, 8) with column c of
+    chunk k holding pts[perm[k*C + c]]. Indices are not checked against
+    n on the card."""
+    if pts.dim() < 3 or pts.shape[-1] != 8:
+        raise ValueError(f"gather_cols: points {tuple(pts.shape)} are not "
+                         "(..., n, A, 8)")
+    bsh, n, A = tuple(pts.shape[:-3]), pts.shape[-3], pts.shape[-2]
+    if perm.dim() != len(bsh) + 2 or tuple(perm.shape[1:]) != bsh + (n,):
+        raise ValueError(f"gather_cols: permutation {tuple(perm.shape)} is "
+                         f"not (G, {', '.join(map(str, bsh + (n,)))})")
+    if n < _CHUNK or n % _CHUNK:
+        raise ValueError(f"gather_cols: {n} entries are not whole chunks "
+                         f"of {_CHUNK}")
+    if pts.device != perm.device:
+        raise ValueError(f"gather_cols: points on {pts.device}, permutation "
+                         f"on {perm.device}")
+    if pts.device.type == "cpu":
+        return gather_cols_plain(pts, perm)
+    D.require(perm, "gather_cols.perm", torch.int32)
+    rows, _, stride = _row_layout(pts, (A, 8), "gather_cols.pts")
+    if stride % 4:
+        raise ValueError(f"gather_cols: table rows {stride} words apart are "
+                         "not 16-byte aligned")
+    G = perm.shape[0]
+    out = torch.empty((_CHUNK, G) + bsh + (n // _CHUNK, A, 8),
+                      dtype=torch.int32, device=pts.device)
+    rc = D.lib("gather").rs_gather_cols(
+        pts.data_ptr(), rows, stride, n, A, perm.data_ptr(), G,
+        out.data_ptr(), D.stream(pts))
+    D.check(rc, "gather_cols")
+    D.count("gather_cols")
+    return out
 
 
 def _window_group(curve, pts, digits, n: int, c: int):
@@ -504,19 +668,13 @@ def _window_group(curve, pts, digits, n: int, c: int):
     digits. Returns packed projective (G, *b, L, 8)."""
     bshape = tuple(digits.shape[:-1])            # (G, *b)
     M = 1 << (c - 1)
-    C, nb = _CHUNK, n // _CHUNK
-    sorted_digits, perm = torch.sort(digits, dim=-1, stable=True)
+    keys, perm, sign, cum = digit_sort(digits, c)
+    del keys
     cols = gather_cols(pts, perm)                 # (C, G, *b, nb, A, 8)
-    sign = (sorted_digits & 1).to(torch.int32).reshape(
-        bshape + (nb, C)).movedim(-1, 0).contiguous()
-    within, excl = _chunked_prefix(curve, cols, sign, bshape, nb)
+    del perm
+    within, excl = _chunked_prefix(curve, cols, sign, bshape, n // _CHUNK)
     del cols, sign
-    # bucket boundary of |d| <= j in the encoded order: key 2j+1
-    queries = 2 * torch.arange(M + 1, device=pts.device) + 1
-    sd = sorted_digits.reshape(-1, n)
-    cum = torch.searchsorted(sd, queries.expand(sd.shape[0], M + 1)
-                             .contiguous(), right=True)
-    A = _ps_at(curve, within, excl, cum.reshape(bshape + (M + 1,)))
+    A = _ps_at(curve, within, excl, cum)
     del within, excl
     top = A[..., M:, :, :].expand(bshape + (M,) + tuple(A.shape[-2:]))
     head = A[..., :M, :, :]

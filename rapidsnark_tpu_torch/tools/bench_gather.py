@@ -6,9 +6,11 @@ permutation (ops/msm.gather_cols) into the scan kernel's column layout
 (256, n/256, A, 8). On a table of n G1 rows (64 bytes each) and a random
 permutation this times:
 
-  production  ops/msm.gather_cols, the very expression the MSM runs:
-              one advanced-index gather straight into the column layout
-              (in place of the TPU's lane-axis gather of limb-major leaves)
+  production  ops/msm.gather_cols, the MSM's gather straight into the
+              column layout (in place of the TPU's lane-axis gather of
+              limb-major leaves): a kernel on the card
+  (plain)     ops/msm.gather_cols_plain, the advanced-index gather the
+              MSM ran before the kernel, timed beside the cases
   take+move   torch.index_select on the (n, 16) rows, then the move to
               the column layout
   take only   the index_select alone (is the move or the gather the cost?)
@@ -63,7 +65,8 @@ def main(argv=None, device=None) -> dict:
         return t.reshape(n // C, C, 16).movedim(1, 0).contiguous()
 
     cases = [
-        ("production gather_cols ", lambda: MSM.gather_cols(pts, perm[None])),
+        ("production gather_cols ",
+         lambda: MSM.gather_cols(pts, perm32[None])),
         ("row take + move        ",
          lambda: move(torch.index_select(rows, 0, perm))),
         ("row take only          ",
@@ -86,6 +89,12 @@ def main(argv=None, device=None) -> dict:
         dt = timeit(fn, reps, dev, calls=K)
         out["cases"][name.strip()] = {"ms": dt * 1e3, "gb_per_s": gb / dt}
         print(f"{name}: {dt*1e3:8.4f} ms/call  {gb/dt:8.2f} GB/s")
+    dt = timeit(lambda: MSM.gather_cols_plain(pts, perm[None]), reps, dev,
+                calls=K)
+    out["plain"] = {"gather_cols_plain": {"ms": dt * 1e3,
+                                          "gb_per_s": gb / dt}}
+    print(f"plain gather_cols       : {dt*1e3:8.4f} ms/call  "
+          f"{gb/dt:8.2f} GB/s")
     out["launches"] = D.counts["dma_gather"] - before
     return out
 

@@ -12,15 +12,23 @@ windows in groups of G:
                 ran it on the card before the kernel
   phi           the slice's phi image of the table (ops/msm.fq_scale,
                 once a slice of the k2 half)
-  sort          digits + the stable sort
-  gather        + ops/msm.gather_cols (the scan's column layout)
-  scan          + the chunked prefix scan (scan_cols_packed, the chunk
-                totals' prefix by add)
+  sort          digits + the bucket order (ops/msm.digit_sort: a kernel
+                on the card)
+  sort_plain    digits + its plain version (torch.sort, searchsorted,
+                the sign columns), as the MSM ran it on the card before
+                the kernel
+  gather        sort + ops/msm.gather_cols (the scan's column layout, a
+                kernel on the card)
+  gather_plain  sort + its plain version (advanced indexing)
+  scan          gather + the chunked prefix scan (scan_cols_packed, the
+                chunk totals' prefix by add)
   group         digits + the whole window group (the boundary sums and
                 the bucket tree too)
 
-The differences between consecutive stages are each stage's cost; a
-slice runs ceil(128/c)/G groups. Tables and scalars are random residues
+The differences between consecutive stages of the kernels' chain are
+each stage's cost (deltas); the plain stages' own differences are beside
+them (plain_deltas), read in the same run; a slice runs ceil(128/c)/G
+groups. Tables and scalars are random residues
 from a seeded torch.Generator (the adders take the same time whatever
 the values).
 
@@ -41,8 +49,8 @@ from ..ops.curve import G1P, G2P_ISO
 from ..ref.field import P, R_FR
 from . import generator, random_words, timeit
 
-STAGES = ("digits", "digits_plain", "phi", "sort", "gather", "scan",
-          "group")
+STAGES = ("digits", "digits_plain", "phi", "sort", "sort_plain", "gather",
+          "gather_plain", "scan", "group")
 
 
 def main(argv=None, device=None) -> dict:
@@ -80,44 +88,59 @@ def main(argv=None, device=None) -> dict:
         return MSM._phi(curve, pts)
 
     def plus_sort():
-        return torch.sort(digits(), dim=-1, stable=True)
+        return MSM.digit_sort(digits(), c)
+
+    def plus_sort_plain():
+        return MSM.digit_sort_plain(digits(), c)
 
     def plus_gather():
-        sd, perm = plus_sort()
-        return sd, MSM.gather_cols(pts, perm)
+        keys, perm, sign, _ = plus_sort()
+        return keys, sign, MSM.gather_cols(pts, perm)
+
+    def plus_gather_plain():
+        _, perm, _, _ = plus_sort()
+        return MSM.gather_cols_plain(pts, perm)
 
     def plus_scan():
-        sd, cols = plus_gather()
-        bshape = tuple(sd.shape[:-1])
-        sign = (sd & 1).to(torch.int32).reshape(bshape + (nb, 256)).movedim(
-            -1, 0).contiguous()
+        keys, sign, cols = plus_gather()
+        bshape = tuple(keys.shape[:-1])
         return MSM._chunked_prefix(curve, cols, sign, bshape, nb)
 
     def group():
         return MSM._window_group(curve, pts, digits(), n, c)
 
     fns = {"digits": digits, "digits_plain": digits_plain, "phi": phi,
-           "sort": plus_sort, "gather": plus_gather, "scan": plus_scan,
-           "group": group}
+           "sort": plus_sort, "sort_plain": plus_sort_plain,
+           "gather": plus_gather, "gather_plain": plus_gather_plain,
+           "scan": plus_scan, "group": group}
     same = bool(torch.equal(digits(), digits_plain()))
+    order_same = all(torch.equal(a, b) for a, b in zip(
+        plus_sort(), plus_sort_plain())) and torch.equal(
+            plus_gather()[2], plus_gather_plain())
     stages = {k: timeit(fn, reps, dev) * 1e3 for k, fn in fns.items()}
     deltas = {"digits": stages["digits"],
               "sort": stages["sort"] - stages["digits"],
               "gather": stages["gather"] - stages["sort"],
               "scan": stages["scan"] - stages["gather"],
               "extraction": stages["group"] - stages["scan"]}
+    plain_deltas = {"sort": stages["sort_plain"] - stages["digits"],
+                    "gather": stages["gather_plain"] - stages["sort"]}
     groups = nwin // G
     out = {"device": str(dev), "curve": which, "B": B, "logn": logn, "c": c,
            "G": G, "reps": reps, "digits_equal_plain": same,
-           "stages_ms": stages, "deltas_ms": deltas,
+           "order_equal_plain": order_same, "stages_ms": stages,
+           "deltas_ms": deltas, "plain_deltas_ms": plain_deltas,
            "groups_per_slice": groups,
            "slice_estimate_ms": stages["group"] * groups + stages["phi"] / 2}
     print(f"{which} B={B} n=2^{logn} c={c} G={G}: digits equal the plain "
-          f"composition: {same}")
+          f"composition: {same}; sort and gather equal their plain "
+          f"versions: {order_same}")
     for k in STAGES:
         print(f"  {k:13s}: {stages[k]:10.4f} ms")
     for k, v in deltas.items():
         print(f"  delta {k:10s}: {v:10.4f} ms")
+    for k, v in plain_deltas.items():
+        print(f"  plain {k:10s}: {v:10.4f} ms")
     return out
 
 

@@ -9,18 +9,24 @@ entry axis when `segment` cuts it, else the whole axis):
   digits         the GLV split and every window's encoded signed digits
                  (ops/msm.glv_digits), and the phi image of the table
                  for the k2 slices (ops/msm.fq_scale)
-  sort           + the stable sort of every window group
-  gather         + ops/msm.gather_cols of every group
+  sort           + the bucket order of every window group
+                 (ops/msm.digit_sort: a kernel on the card)
+  gather         + ops/msm.gather_cols of every group (a kernel on the
+                 card)
   scan_extract   digits + every group's scan and extraction with the
                  sort and the gather left out (the table in its own
                  order, the digits unsorted: the adders take the same
                  time whatever the values)
 
-and, for one window group of one slice, the gather formulations on the
-same rows (G x B x entries rows of 64 bytes):
+and, as separate plain stages in the same run, sort_plain and
+gather_plain: the sort and gather stages with the plain versions
+(torch.sort + searchsorted, advanced indexing), as the MSM ran them on
+the card before the kernels; and, for one window group of one slice,
+the gather formulations on the same rows (G x B x entries rows of 64
+bytes), the plain gather_cols beside them:
 
-  gather_cols         the MSM's advanced-index gather straight into the
-                      scan's column layout
+  gather_cols         the MSM's gather straight into the scan's column
+                      layout (the kernel)
   index_select_move   torch.index_select of the rows, then the move to
                       the column layout
   dma_gather          the port's hand-written row gather
@@ -94,16 +100,16 @@ def main(argv=None, device=None) -> dict:
     def digits_only():
         return [dg.sum() for _, _, dg in slices()]
 
-    def sort_only():
-        return [torch.sort(g, dim=-1, stable=True)[1].sum()
+    def sort_only(sort=MSM.digit_sort):
+        return [sort(g, c)[1].sum()
                 for _, _, dg in slices() for g in groups(dg)]
 
-    def sort_gather():
+    def sort_gather(sort=MSM.digit_sort, gather=MSM.gather_cols):
         out = []
         for _, part, dg in slices():
             for g in groups(dg):
-                perm = torch.sort(g, dim=-1, stable=True)[1]
-                out.append(MSM.gather_cols(part, perm).sum())
+                perm = sort(g, c)[1]
+                out.append(gather(part, perm).sum())
         return out
 
     def scan_extract():
@@ -133,17 +139,22 @@ def main(argv=None, device=None) -> dict:
     variants = {"msm": run_msm, "digits": digits_only, "sort": sort_only,
                 "gather": sort_gather, "scan_extract": scan_extract}
     stages = {k: timeit(fn, reps, dev) * 1e3 for k, fn in variants.items()}
+    plain_stages = {
+        "sort_plain": timeit(lambda: sort_only(MSM.digit_sort_plain), reps,
+                             dev) * 1e3,
+        "gather_plain": timeit(lambda: sort_gather(
+            MSM.digit_sort_plain, MSM.gather_cols_plain), reps, dev) * 1e3}
     parts = stages["gather"] + stages["scan_extract"] - stages["digits"]
     print(f"G1 B={B} n=2^{logn} segment={segment} c={c} G={G} "
           f"({-(-2 * npts // seg)} slices x {ngroups} groups)")
-    for k, v in stages.items():
+    for k, v in {**stages, **plain_stages}.items():
         print(f"  {k:13s}: {v:10.3f} ms")
     print(f"  sum of parts : {parts:10.3f} ms vs msm {stages['msm']:.3f}")
 
     # the gather formulations, one group of one slice: G x B x seg rows
     gperm = torch.stack([torch.stack([torch.randperm(
         seg, generator=gen, device=dev) for _ in range(B)])
-        for _ in range(G)])                                 # (G, B, seg)
+        for _ in range(G)]).to(torch.int32)                 # (G, B, seg)
     table = MSM._table_slice(G1P, pts, 0, seg) if seg == 2 * npts else \
         pts[:, :seg]
     rows = table.reshape(-1, 16)
@@ -163,17 +174,22 @@ def main(argv=None, device=None) -> dict:
     }
     ref = gathers["gather_cols"]()
     same = all(torch.equal(gathers[k](), ref)
-               for k in ("index_select_move", "dma_gather_move"))
+               for k in ("index_select_move", "dma_gather_move")) and \
+        torch.equal(MSM.gather_cols_plain(table, gperm), ref)
     del ref
     gb = rows.shape[1] * 4 * flat.shape[0] / 1e9
     gms = {k: timeit(fn, reps, dev) * 1e3 for k, fn in gathers.items()}
+    gplain = timeit(lambda: MSM.gather_cols_plain(table, gperm), reps,
+                    dev) * 1e3
     print(f"-- gather formulations: {G} x {B} x {seg} rows of 64 B, "
           f"equal {same}")
-    for k, v in gms.items():
+    for k, v in {**gms, "gather_cols_plain": gplain}.items():
         print(f"  {k:17s}: {v:10.4f} ms  {gb / v * 1e3:8.2f} GB/s")
     return {"device": str(dev), "logn": logn, "B": B, "segment": segment,
             "c": c, "G": G, "reps": reps, "stages_ms": stages,
+            "plain_stages_ms": plain_stages,
             "sum_of_parts_ms": parts, "gather_ms": gms,
+            "gather_plain_ms": gplain,
             "gather_equal": same, "gather_rows": flat.shape[0]}
 
 

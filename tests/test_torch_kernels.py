@@ -576,6 +576,62 @@ def test_prep_kernels_refuse_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 8, 9, 13, 16])
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 4, 4096), "random"), ((1, 256), "random"), ((2, 4, 4352), "zeros"),
+    ((2, 4, 4352), "top"), ((2, 4, 12544), "one value a tile")])
+def test_digit_sort_kernel_matches_plain(c, shape, kind):
+    """Sorted keys, permutation, sign columns and boundaries, word for
+    word, on random digits and edge tables (ragged tiles included)."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    rs = np.random.RandomState(c * 100 + shape[-1])
+    top = 1 << (c + 1)
+    if kind == "random":
+        d = rs.randint(0, top, size=shape)
+    elif kind == "zeros":
+        d = np.zeros(shape)
+    elif kind == "top":
+        d = np.full(shape, top - 1)
+    else:
+        d = np.broadcast_to((np.arange(shape[-1]) // TM.SORT_TILE * 5 + 1)
+                            % top, shape)
+    d = torch.from_numpy(np.ascontiguousarray(d, dtype=np.int64)).to(dev)
+    D.reset_counts()
+    got = TM.digit_sort(d, c)
+    want = TM.digit_sort_plain(d, c)
+    torch.cuda.synchronize()
+    assert D.counts["digit_sort"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,rows,n,view", [
+    (2, 4, 4096, False), (4, 1, 2560, False), (2, 4, 4096, True)])
+def test_gather_cols_kernel_matches_plain(A, rows, n, view):
+    """The column layout of G = 2 windows, on a contiguous table and on a
+    slice view of one (ragged spans of chunks included)."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    tab = _fe(P, (rows, 2 * n if view else n, A), 76, dev)
+    pts = tab[:, n:] if view else tab
+    rs = np.random.RandomState(n)
+    perm = torch.from_numpy(np.stack([[rs.permutation(n) for _ in
+                                       range(rows)] for _ in range(2)])
+                            .astype(np.int32)).to(dev)
+    D.reset_counts()
+    got = TM.gather_cols(pts, perm)
+    want = TM.gather_cols_plain(pts, perm)
+    torch.cuda.synchronize()
+    assert D.counts["gather_cols"] == 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="gather_cols"):
+        TM.gather_cols(pts, perm.long())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("glv", [True, False])
 def test_segmented_g2_msm_on_card_matches_cpu(glv):
     """The G2 MSM in slices on the card (digits, phi, negations and the

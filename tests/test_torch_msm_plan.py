@@ -58,14 +58,14 @@ def _fits(npts, plan, memory, ranks=1, rows=4):
 TABLE = {
     20: {"85": (0, 16, 8), "40": (0, 16, 8), "D=2": (0, 16, 8),
          "D=4": (0, 16, 8)},
-    21: {"85": (0, 16, 4), "40": (0, 16, 4), "D=2": (0, 16, 8),
+    21: {"85": (0, 16, 8), "40": (0, 16, 4), "D=2": (0, 16, 8),
          "D=4": (0, 16, 8)},
-    22: {"85": (0, 16, 2), "40": (0, 16, 2), "D=2": (0, 16, 4),
+    22: {"85": (1 << 22, 16, 8), "40": (1 << 21, 16, 8), "D=2": (0, 16, 4),
          "D=4": (0, 16, 4)},
-    23: {"85": (1 << 23, 16, 2), "40": (1 << 22, 16, 4), "D=2": (0, 16, 2),
-         "D=4": (0, 16, 2)},
-    24: {"85": (1 << 23, 16, 2), "40": (1 << 22, 16, 2),
+    23: {"85": (1 << 22, 16, 8), "40": (1 << 22, 16, 2),
          "D=2": (1 << 22, 16, 4), "D=4": (1 << 21, 16, 4)},
+    24: {"85": (1 << 22, 16, 4), "40": (1 << 21, 16, 4),
+         "D=2": (1 << 22, 16, 2), "D=4": (1 << 21, 16, 2)},
 }
 
 
@@ -113,11 +113,12 @@ def test_plan_shrinks_and_raises():
     tables and the narrowest slice raises (no fallback)."""
     n = 1 << 24
     widths = [_shape(n, C.msm_plan(n, 4, 1, m * GB))[1]
-              for m in (85, 60, 40, 30, 20)]
+              for m in (85, 60, 40, 30, 22)]
     assert widths == sorted(widths, reverse=True)
     assert widths[-1] < widths[0]
-    with pytest.raises(ValueError, match="msm_plan"):
-        C.msm_plan(n, 4, 1, 8 * GB)
+    for m in (8, 20):
+        with pytest.raises(ValueError, match="msm_plan"):
+            C.msm_plan(n, 4, 1, m * GB)
 
 
 def _load(name):
@@ -201,34 +202,34 @@ def test_ranks_sharing_a_card_plan_a_share(monkeypatch):
 
 
 def test_plan_geometry_proof_matches_jax(tmp_path, monkeypatch):
-    """The 2^24 plan's geometry scaled down by 2^15: slices of 2^23 /
-    2^15 = 256 entries, four of them as at 2^24, and its window group G,
+    """The 2^24 plan's geometry scaled down by 2^14: slices of 2^22 /
+    2^14 = 256 entries, eight of them as at 2^24, and its window group G,
     at c = 8 (the plain scans' buckets at c = 16 take minutes a window
     group on the CPU; tests/test_torch_msm_plan_c16.py holds c = 16), on
-    the wide circuit of domain 64 and 264 wires (512 padded points). The
-    Prover takes that geometry from msm_plan, given 2^-15 of the H100's
+    the wide circuit of domain 64 and 864 wires (1024 padded points). The
+    Prover takes that geometry from msm_plan, given 2^-14 of the H100's
     memory; its proof for a fixed (r, s) equals the JAX package's
     Prover's (window_bits=4, as tests/test_prover_device.py runs it) and
     pairing-verifies."""
     for k in KNOBS:
         monkeypatch.delenv(k, raising=False)
     big = C.msm_plan(1 << 24)
-    assert 2 * (1 << 24) // big.segment == 4
-    scaled = C.MSMPlan(big.segment >> 15, 8, big.G)
+    assert 2 * (1 << 24) // big.segment == 8
+    scaled = C.MSMPlan(big.segment >> 14, 8, big.G)
     seen = []
 
     def plan(*a):
         seen.append(a)
         return scaled
 
-    zpath, wpath = F.generate(6, str(tmp_path), device="cpu", extra=200)
+    zpath, wpath = F.generate(6, str(tmp_path), device="cpu", extra=800)
     zk, wt = read_zkey(zpath), read_wtns(wpath)
-    monkeypatch.setattr(D, "total_memory", lambda dev: C.CARD_MEMORY >> 15)
+    monkeypatch.setattr(D, "total_memory", lambda dev: C.CARD_MEMORY >> 14)
     monkeypatch.setattr(C, "msm_plan", plan)
     prover = Prover(zk, device="cpu")
-    assert seen == [(512, 4, 1, C.CARD_MEMORY >> 15)]
+    assert seen == [(1024, 4, 1, C.CARD_MEMORY >> 14)]
     assert (prover.segment, prover.c_bits, prover.window_group,
-            prover.nmax) == (256, 8, big.G, 512)
+            prover.nmax) == (256, 8, big.G, 1024)
     proof, publics = prover.prove(wt.values, r=R, s=S)
     assert verify(zkey_to_ref(zk, tables=False), proof, publics)
     jp = JProver(j_read_zkey(zpath), window_bits=4)
