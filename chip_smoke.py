@@ -72,7 +72,11 @@ in order; any failure exits non-zero:
      (digit_sort's sorted keys, permutation, sign columns and bucket
      boundaries; gather_cols's columns; _ps_at's two dma_gather
      lookups), beside torch.sort + searchsorted, the advanced-index
-     gather and index_select + the move (library_ms), and digit_sort on
+     gather and index_select + the move (library_ms), digit_sort's
+     launches a call counted on the card from one profiled call (the
+     counting pass, its scan, a scatter a radix pass and the tail; any
+     other count fails) and, on a log line of its own, its design's own
+     traffic (sort_plan) beside its bound, and digit_sort on
      edge tables at c = 4, 8, 9, 13, 16 (all keys 0, keys 0 and 1, every
      key 2^(c+1) - 1, one row of 256, descending keys, one key value a
      tile); every prove below must call digit_sort and gather_cols once
@@ -169,10 +173,14 @@ in order; any failure exits non-zero:
      the front and of each MSM stage); both proofs
      must pairing-verify, and every scan, add and fused NTT pass must
      have run at a shape phase 2 checked; the warm prove has a fixed
-     (r, s), and one more runs under torch.profiler (device kernels
-     launched, the device-busy share of the prove and of the MSMs'
-     window, its device ms by the port's wrappers and torch's; a torch
-     sort or index gather in the MSMs fails the run); no plain field
+     (r, s), and one more runs under torch.profiler after the lead
+     spin kernels of device.traced (device kernels launched, the
+     device-busy share of the prove and of the MSMs' window, its device
+     ms by the port's wrappers and torch's, the front's kernels and
+     digit_sort's by name; a torch sort or index gather in the MSMs
+     fails the run, and so does a wrapper with fewer kernels in the
+     trace after the lead, on the card's timeline, than its calls
+     launched, as in every profiled prove of the run); no plain field
      arithmetic or GLV.decompose may run on a
      CUDA tensor in the CLI prove (set-up included), the warm prove and
      the K = 3 Prover's set-up and proves; fr_slot_acc on the Prover's
@@ -1465,6 +1473,20 @@ def main() -> int:
         d[..., :shape[-1] // 7] = 0
         return d
 
+    def kernel_names(fn):
+        """The port's kernels one call of fn launches, by name, from a
+        profiled call (device.traced, the events after its lead); the
+        launch counts as they were."""
+        saved, box = dict(D.counts), {}
+        fn()
+        torch.cuda.synchronize()
+        with D.traced(dev, lambda p: box.update(evs=p.events())):
+            fn()
+            torch.cuda.synchronize()
+        D.counts.update(saved)
+        return Counter(m.group(1) for e in D.block_events(box["evs"])
+                       for m in [re.search(r"\b(k_\w+)", e.name)] if m)
+
     def sort_case(key, d, cc, timed_case=True):
         got = MSM.digit_sort(d, cc)
         want, plain_ms = timed_once(lambda: MSM.digit_sort_plain(d, cc))
@@ -1484,11 +1506,25 @@ def main() -> int:
             sd = torch.sort(flat, dim=-1, stable=True)[0]
             return torch.searchsorted(sd, qs, right=True)
 
+        # the launches of a call, counted on the card: the counting pass,
+        # its scan, a scatter a pass and the tail
+        plan = MSM.sort_plan(cc, d.shape[-1], flat.shape[0])
+        names = kernel_names(lambda: MSM.digit_sort(d, cc))
+        launches = sum(v for k, v in names.items() if k.startswith("k_sort_"))
+        if launches != len(plan.passes) + 3:
+            failures.append(f"digit_sort[{key}] launched {dict(names)}, "
+                            f"not {len(plan.passes) + 3} kernels")
         record("digit_sort", key, e, ms, dev_t, plain_ms,
                20 * d.numel() + 4 * got[3].numel(), 0,
                library_ms=device_time(lib, reps)[0],
-               passes=len(MSM.sort_plan(cc, d.shape[-1], flat.shape[0])
-                          .passes))
+               passes=len(plan.passes), launches_per_call=launches,
+               kernels=dict(names))
+        # the design's own traffic (sort_plan), on this log line only: a
+        # second, looser bound than the function's 20 B a key
+        design_ms = plan.traffic_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"  digit_sort[{key}] design traffic {plan.traffic_bytes} B "
+            f"{design_ms:.4f} ms at the HBM rate, share "
+            f"{design_ms / dev_t[0]:.3f} of the device ms")
         return got
 
     for gk, g in order_geo.items():
@@ -1674,13 +1710,21 @@ def main() -> int:
         return phases, peak
 
     def profiled_prove(prover, zpath, wpath, want):
-        """One more warm prove (the fixed (r, s)) under torch.profiler,
-        CUDA activity, no stacks; the proof must equal `want`. Returns
-        the device kernels launched in the prove and in the MSMs' window
-        (Prover.msms to its last kernel: a synchronize closes it), and
-        the share of each window in which some kernel or copy ran on the
-        card; the kernels taking most of the window's device time."""
-        from torch.profiler import ProfilerActivity, profile, record_function
+        """One more warm prove (the fixed (r, s)) under torch.profiler
+        (device.traced: the lead's spin kernels, then the prove), CUDA
+        activity, no stacks; the proof must equal `want`, and every
+        wrapper the prove called must have at least as many kernels in
+        the trace after the lead, on the card's timeline
+        (device.block_events), as its calls launch (device.counts;
+        digit_sort's passes + 3 a call, from shape_log), else the run
+        fails: a trace that lost the front's first kernels is not
+        reported. Returns the device kernels launched in the prove and
+        in the MSMs' window (Prover.msms to its last kernel: a
+        synchronize closes it), and the share of each window in which
+        some kernel or copy ran on the card; the kernels taking most of
+        the window's device time, the front's port kernels (before the
+        MSMs' window) and digit_sort's kernels by name."""
+        from torch.profiler import record_function
         wt = read_wtns(wpath)
         real_msms = prover.msms
 
@@ -1690,27 +1734,49 @@ def main() -> int:
                 torch.cuda.synchronize()
             return res
 
+        box = {}
         prover.msms = msms
-        t0 = time.perf_counter()
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with D.traced(dev, lambda p: box.update(evs=p.events())), \
+                    shape_log() as seen:
+                D.reset_counts()
+                t0 = time.perf_counter()
                 with record_function("chip_smoke.prove"):
                     proof, pub = prover.prove(wt.values, r=r_fix, s=s_fix)
                     torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                prove_s = t1 - t0
+                calls = {k: v for k, v in D.counts.items() if v}
         finally:
             del prover.msms
-        prove_s = time.perf_counter() - t0
         if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
             raise RuntimeError("the profiled prove's proof differs")
-        t1 = time.perf_counter()
-        evs = prof.events()
+        evs = box["evs"]
         cuda_t = torch.autograd.DeviceType.CUDA
-        dev_evs = [e for e in evs if e.device_type == cuda_t
-                   and not e.name.startswith("chip_smoke.")]
+        dev_evs = [e for e in D.block_events(evs)
+                   if not e.name.startswith("chip_smoke.")]
         win = {e.name: (e.time_range.start, e.time_range.end) for e in evs
                if e.name.startswith("chip_smoke.")
                and e.device_type != cuda_t}
+
+        def wrapper_of(name):
+            return next((w for pre, w in PORT_KERNEL_OF
+                         if name.startswith(pre)), name)
+
+        # the kernels each wrapper's calls launch: one a count, digit_sort
+        # a counting pass, its scan, a scatter a radix pass and the tail
+        launched = dict(calls)
+        if "digit_sort" in calls:
+            if sum(seen["sort"].values()) != calls["digit_sort"]:
+                raise RuntimeError(f"digit_sort: {calls['digit_sort']} "
+                                   f"calls counted, {seen['sort']} seen")
+            launched["digit_sort"] = sum(
+                k * (len(MSM.sort_plan(c, n, rows).passes) + 3)
+                for (c, rows, n), k in seen["sort"].items())
+        traced = Counter(wrapper_of(m.group(1)) for e in dev_evs
+                         for m in [re.search(r"\b(k_\w+)", e.name)] if m)
+        lost = {k: [v, traced[k]] for k, v in launched.items()
+                if traced[k] < v}
 
         def kernel(e):
             return not e.name.startswith(("Memcpy", "Memset"))
@@ -1732,7 +1798,9 @@ def main() -> int:
                 tot += cur_hi - cur_lo
             return tot
 
-        out = {"prove_s": prove_s, "device_events": len(dev_evs)}
+        out = {"prove_s": prove_s, "device_events": len(dev_evs),
+               "calls": calls, "launched_kernels": launched,
+               "traced_kernels": dict(traced), "lost": lost}
         for tag, name in (("prove", "chip_smoke.prove"),
                           ("msms", "chip_smoke.msms")):
             if name not in win:
@@ -1743,15 +1811,20 @@ def main() -> int:
             port = Counter()              # the port's kernels, k_*
             cats = Counter()              # by wrapper; "torch" the rest
             torch_order = Counter()       # torch sorts and index gathers
+            front = Counter()             # port kernels before the MSMs
+            sort_n = Counter()            # digit_sort's launches by kernel
+            msms_lo = win.get("chip_smoke.msms", (hi, hi))[0]
             for e in inside:
                 dur = e.time_range.end - e.time_range.start
                 by_name[e.name[:80]] += dur
                 m = re.search(r"\b(k_\w+)", e.name)
                 if m:
                     port[m.group(1)] += dur
-                    cats[next((w for pre, w in PORT_KERNEL_OF
-                               if m.group(1).startswith(pre)),
-                              m.group(1))] += dur
+                    cats[wrapper_of(m.group(1))] += dur
+                    if e.time_range.start < msms_lo:
+                        front[m.group(1)] += dur
+                    if m.group(1).startswith("k_sort_"):
+                        sort_n[m.group(1)] += 1
                 elif kernel(e):
                     cats["torch"] += dur
                     if TORCH_ORDER.search(e.name):
@@ -1767,6 +1840,11 @@ def main() -> int:
                 "port_kernels_ms": {k: v / 1e3
                                     for k, v in port.most_common()},
                 "categories_ms": {k: v / 1e3 for k, v in cats.most_common()},
+                "front_port_kernels_ms": {k: v / 1e3
+                                          for k, v in front.most_common()},
+                "digit_sort_kernels_ms": {k: v / 1e3 for k, v in port.items()
+                                          if k.startswith("k_sort_")},
+                "digit_sort_kernel_launches": dict(sort_n),
                 "torch_sort_or_gather_ms": {
                     k: v / 1e3 for k, v in torch_order.most_common()}}
         out["post_processing_s"] = time.perf_counter() - t1
@@ -1774,6 +1852,9 @@ def main() -> int:
             log("  profiler: no device activity in the trace; the idle "
                 "share is not measured")
         log(f"  profiled prove: {json.dumps(out)}")
+        if lost:
+            raise RuntimeError("the profiled prove's trace lost kernels "
+                               f"(wrapper: [launched, traced]): {lost}")
         if out.get("msms", {}).get("torch_sort_or_gather_ms"):
             raise RuntimeError("a torch sort or index gather ran in the "
                                "MSMs: "

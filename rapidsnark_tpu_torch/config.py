@@ -28,10 +28,11 @@ package), and the MSM's memory plan on the H100:
 
 msm_plan sets the MSM's geometry (slice, c, window group) from the card's
 memory and from MSM_COST, times measured on an H100 80GB HBM3
-(tools/geometry_sweep; PERF.md). On one such card it gives c = 16 from
-2^18 points on, and (segment, G): whole axes with G = 8 at 2^20 points,
-4 at 2^21 and 2 at 2^22, slices of 2^23 entries with G = 2 at 2^23 and
-2^24 points; smaller cards and ranks sharing a card get narrower slices.
+(tools/geometry_sweep; PERF.md). On one such card (85.0 GB) it gives
+c = 16 from 2^18 points on, and (segment, G): whole axes with G = 8 at
+2^20 and 2^21 points, slices of 2^22 entries with G = 8 at 2^22 and 2^23
+points and with G = 4 at 2^24; smaller cards and ranks sharing a card
+get narrower slices.
 The Prover takes its arguments first, then the three variables above,
 then the plan. msm_segment, window_group, ntt_sequential and
 ops/msm.best_window_bits keep the JAX package's geometry, tuned on a TPU
@@ -121,11 +122,12 @@ TABLE_BYTES_G1_ROW, TABLE_BYTES_G2 = 64, 128
 # the working set of a slice entry while ops/msm._window_group runs, from
 # its code: per (window x table row) the largest of its three steps.
 # digit_sort: its int64 input is the caller's; the sorted keys, the
-# permutation and the signs (int32 each), the first radix pass's keys
-# and values (int32 each) and the histogram (4 B a digit a tile of 4096
-# keys: 0.5 B a key at 9 bits): 20.5 B. gather_cols: the permutation and
-# the signs (the keys are dropped) and the gathered affine columns (A x
-# 32 B): 8 + 32 A. The scan: the signs, the columns and the
+# permutation and the signs (int32 each), the first radix pass's packed
+# key and index (8 B) and its int32 workspace (ops/msm.sort_plan: a
+# status word a digit of both passes a tile of 8192 keys, the counting
+# pass's partial counts a chunk of 32768, 0.47 B a key at c = 16):
+# 20.5 B. gather_cols: the permutation and the signs (the keys are
+# dropped) and the gathered affine columns (A x 32 B): 8 + 32 A. The scan: the signs, the columns and the
 # all-positions prefix `within` (L x 32 B): 4 + 32 A + 32 L, the largest;
 # per table row the slice's digits of every window (int64) and its phi
 # image (A x 32 B). G1: A 2, L 3; G2's iso-twist: A 4, L 6. PERF.md holds
@@ -139,16 +141,16 @@ DIGIT_BYTES = 8
 # points in slices of 2^19-2^23 entries, whole axes below 2^19 entries
 # (the fastest c there; c = 16 wins at every slice width)
 MSM_COST = {
-    9: ((9, 5, 37941.625),),
-    11: ((9, 5, 9618.047),),
-    13: ((9, 5, 2385.109),),
-    15: ((13, 5, 628.338),),
-    17: ((13, 5, 161.958),),
-    19: ((16, 8, 35.129), (16, 4, 45.655), (16, 2, 70.829)),
-    20: ((16, 8, 30.128), (16, 4, 31.156), (16, 2, 38.379)),
-    21: ((16, 8, 25.416), (16, 4, 28.210), (16, 2, 29.238)),
-    22: ((16, 8, 23.918), (16, 4, 24.533), (16, 2, 27.338)),
-    23: ((16, 8, 22.923), (16, 4, 23.460), (16, 2, 24.129)),
+    9: ((9, 5, 34894.75),),
+    11: ((9, 5, 9697.89),),
+    13: ((9, 5, 2479.098),),
+    15: ((9, 5, 616.431),),
+    17: ((14, 5, 117.754),),
+    19: ((16, 8, 34.172), (16, 4, 41.184), (16, 2, 70.194)),
+    20: ((16, 8, 29.139), (16, 4, 30.168), (16, 2, 36.502)),
+    21: ((16, 8, 24.416), (16, 4, 27.202), (16, 2, 28.331)),
+    22: ((16, 8, 22.929), (16, 4, 23.578), (16, 2, 26.387)),
+    23: ((16, 8, 21.951), (16, 4, 22.485), (16, 2, 23.169)),
 }
 # the narrowest slice: below 2^19 entries the times are whole axes', an
 # MSM bound by its launches, which slicing would multiply

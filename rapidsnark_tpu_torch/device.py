@@ -13,6 +13,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -57,8 +58,8 @@ _ARGTYPES = {
     "rs_glv_digits": [_VP, _LL, _LL, _LL, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     "rs_fq_scale": [_VP, _LL, _LL, _LL, _I, ctypes.c_ulonglong, _I, _VP, _VP,
                     _VP],
-    "rs_digit_sort": [_VP, _LL, _LL, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                      _LL, _VP, _LL, _VP],
+    "rs_digit_sort": [_VP, _LL, _LL, _I, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                      _VP],
     "rs_gather_cols": [_VP, _LL, _LL, _LL, _I, _VP, _LL, _VP, _VP],
 }
 
@@ -81,6 +82,73 @@ def total_memory(dev: torch.device) -> int:
         return torch.cuda.get_device_properties(dev).total_memory
     from .config import CARD_MEMORY
     return CARD_MEMORY
+
+
+# the lead of a traced block on a card: a spin of about 0.27 s at the
+# H100's 1.98 GHz, a host-to-card copy and LEAD_KERNELS small kernels,
+# then one short spin as the block's marker
+TRACE_LEAD = "spin_kernel"
+TRACE_LEAD_CYCLES = 1 << 29
+LEAD_KERNELS = 64
+
+
+def _lead(dev: torch.device) -> None:
+    with torch.cuda.device(dev):
+        torch.cuda._sleep(TRACE_LEAD_CYCLES)
+        x = torch.zeros(1 << 16, dtype=torch.int32).to(dev)
+        for _ in range(LEAD_KERNELS):
+            x.add_(1)
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def traced(dev: torch.device, on_ready):
+    """torch.profiler over the block (CPU activity, and the card's on a
+    card) as the profiler's one active step; on_ready(prof) gets the
+    profile when the block ends. A session can lose, in some process
+    states, its first card records (on an H100 with torch 2.11 and CUDA
+    12.8: a prove's witness copy and first kernels). On a card a lead
+    (_lead: a long spin kernel, named TRACE_LEAD, a copy, small kernels,
+    a short marker spin) runs in a warm-up step and again at the start
+    of the active step, before the block: a warm-up step alone or a
+    lead alone each lost records in some smoke runs, both together
+    none. block_events(prof.events()) gives the card's events of the
+    block, split from the lead on the card's own timeline."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, on_trace_ready=on_ready,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        if dev.type == "cuda":
+            _lead(dev)
+        prof.step()
+        if dev.type == "cuda":
+            _lead(dev)
+        yield prof
+        prof.step()
+
+
+def block_events(events) -> list:
+    """The card's events of a `traced` block: those that start after the
+    end of the last lead spin in the trace, on the card's timeline.
+    Raises when the trace holds no lead spin: it lost more than the
+    lead, so the block's first records may be gone too."""
+    cuda_t = torch.autograd.DeviceType.CUDA
+    card = [e for e in events if e.device_type == cuda_t]
+    ends = [e.time_range.end for e in card if TRACE_LEAD in e.name]
+    if not ends:
+        host = [e.time_range.start for e in events if e.device_type != cuda_t]
+        raise RuntimeError(
+            "the trace lost its lead kernels, so the block's first card "
+            f"records may be lost too: {len(card)} card events, the first "
+            f"at {min((e.time_range.start for e in card), default=None)} "
+            f"us, the first host event at {min(host, default=None)} us")
+    start = max(ends)
+    return [e for e in card if e.time_range.start >= start
+            and TRACE_LEAD not in e.name]
 
 
 def reset_counts() -> None:

@@ -510,37 +510,65 @@ def pad_len(n: int) -> int:
 # MSM core
 # ---------------------------------------------------------------------------
 
-# digit_sort's plan (csrc/sort.cu SORT_TILE, SORT_MAX_BITS, SCAN_CHUNK)
-SORT_TILE = 4096        # keys a block ranks at once
+# digit_sort's plan (csrc/sort.cu SORT_TILE, SORT_MAX_BITS, COUNT_CHUNK,
+# CTR_WORDS; a status word's count has 30 bits)
+SORT_TILE = 8192        # keys a block of a scatter pass ranks at once
 SORT_MAX_BITS = 10      # bits of the widest radix pass
-SCAN_CHUNK = 4096       # histogram words a block of the scan takes
+COUNT_CHUNK = 32768     # keys a block of the counting pass reads
+SORT_CTR_WORDS = 32     # the scatter passes' tile counters
+SORT_MAX_ROW = (1 << 30) - 1
 
 
 class SortPlan(NamedTuple):
-    """digit_sort's launch for rows of n keys of c + 1 bits: `passes`
-    (shift, bits) low bits first, `tiles` a row, the histogram's and the
-    scan's chunk sums' words (the widest pass's; the passes share them)
-    and the workspace's bytes (with two passes, the first pass's keys and
-    values too)."""
+    """digit_sort's launches for R rows of n keys of c + 1 bits: `passes`
+    (shift, bits) low bits first, one scatter launch each; `tile` keys a
+    block of a scatter ranks, `tiles` a row; `chunks` blocks a row of the
+    counting pass; `bins` the passes' digits together; `status_words`
+    the scatters' look-back words (a (row, tile, digit) of every pass);
+    `work_words` the int32 workspace (tile counters, status words, the
+    counting pass's partial histograms, the digit bases);
+    `workspace_bytes` with two passes also the packed intermediate (8 B
+    a key); `traffic_bytes` what the launches move in device memory
+    (the design's own floor, beside the function's 20 B a key)."""
     passes: tuple
+    tile: int
     tiles: int
-    hist_words: int
-    part_words: int
+    chunks: int
+    bins: int
+    status_words: int
+    work_words: int
     workspace_bytes: int
+    traffic_bytes: int
 
 
 def sort_plan(c: int, n: int, rows: int) -> SortPlan:
     if not 1 <= c <= 16:
         raise ValueError(f"digit_sort: window bits {c} not in 1..16")
+    if n > SORT_MAX_ROW:
+        raise ValueError(f"digit_sort: a row of {n} keys passes the "
+                         f"look-back's 30-bit count ({SORT_MAX_ROW})")
     bits = c + 1
     npass = -(-bits // SORT_MAX_BITS)
     b0 = -(-bits // npass)
     passes = tuple((p * b0, min(b0, bits - p * b0)) for p in range(npass))
+    bins = sum(1 << b for _, b in passes)
     tiles = -(-n // SORT_TILE)
-    hist = rows * (1 << b0) * tiles
-    part = -(-hist // SCAN_CHUNK)
-    ping = 8 * rows * n if npass > 1 else 0
-    return SortPlan(passes, tiles, hist, part, ping + 4 * (hist + part))
+    chunks = -(-n // COUNT_CHUNK)
+    status = rows * tiles * bins
+    work = SORT_CTR_WORDS + status + rows * (chunks + 1) * bins
+    mid = 8 * rows * n if npass > 1 else 0
+    keys = rows * n
+    # the count reads the int64 keys; a pass reads 8 B a key (the keys or
+    # the packed words) and writes 8 (packed words, or key and index);
+    # the tail reads the sorted keys and writes the signs and boundaries.
+    # A status word is zeroed, published twice and read once, a partial
+    # count and a digit base written and read once
+    partials = rows * chunks * bins
+    traffic = (8 * keys + 16 * keys * npass + 8 * keys
+               + 4 * rows * ((1 << (c - 1)) + 1)
+               + 16 * status + 8 * (partials + rows * bins))
+    return SortPlan(passes, SORT_TILE, tiles, chunks, bins, status, work,
+                    mid + 4 * work, traffic)
 
 
 def digit_sort_plain(digits, c: int):
@@ -584,13 +612,13 @@ def digit_sort(digits: torch.Tensor, c: int):
     rows = digits.numel() // n
     if rows * n >= 1 << 31:
         raise ValueError(f"digit_sort: {rows} x {n} keys pass 2^31")
+    plan = sort_plan(c, n, rows)
     if digits.device.type == "cpu":
         if digits.numel() and (int(digits.min()) < 0
                                or int(digits.max()) >> (c + 1)):
             raise ValueError(f"digit_sort: a key outside 0 .. 2^{c + 1} - 1")
         return digit_sort_plain(digits, c)
     D.require(digits, "digit_sort.digits", torch.int64)
-    plan = sort_plan(c, n, rows)
     bshape = tuple(digits.shape[:-1])
     dev = digits.device
 
@@ -601,13 +629,13 @@ def digit_sort(digits: torch.Tensor, c: int):
     sign = i32(_CHUNK, *bshape, n // _CHUNK)
     cum = i32(*bshape, (1 << (c - 1)) + 1)
     two = len(plan.passes) > 1
-    tk, tv = (i32(rows, n), i32(rows, n)) if two else (None, None)
-    hist, part = i32(plan.hist_words), i32(plan.part_words)
+    mid = (torch.empty((rows, n), dtype=torch.int64, device=dev) if two
+           else None)
+    ws = i32(plan.work_words)
     rc = D.lib("sort").rs_digit_sort(
         digits.data_ptr(), rows, n, c, keys.data_ptr(), perm.data_ptr(),
-        sign.data_ptr(), cum.data_ptr(), tk.data_ptr() if two else None,
-        tv.data_ptr() if two else None, hist.data_ptr(), plan.hist_words,
-        part.data_ptr(), plan.part_words, D.stream(digits))
+        sign.data_ptr(), cum.data_ptr(), mid.data_ptr() if two else None,
+        ws.data_ptr(), plan.work_words, D.stream(digits))
     D.check(rc, "digit_sort")
     D.count("digit_sort")
     return keys, perm, sign, cum

@@ -458,19 +458,17 @@ class Prover:
     @contextlib.contextmanager
     def _profiled(self, out_dir: str):
         """A torch.profiler trace (CPU, and the card's kernels on a card)
-        of the block, exported as a Chrome trace into out_dir."""
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            yield
+        of the block (device.traced: on a card its spin kernels lead the
+        block's), exported as a Chrome trace into out_dir."""
         os.makedirs(out_dir, exist_ok=True)
         self._traces += 1
         rank = 0 if self.mesh is None else self.mesh.rank
-        self.last_trace = os.path.join(
+        path = os.path.join(
             out_dir, f"prove_{os.getpid()}_rank{rank}_{self._traces}.json")
-        prof.export_chrome_trace(self.last_trace)
+        with D.traced(self.device, lambda prof: prof.export_chrome_trace(
+                path)):
+            yield
+        self.last_trace = path
 
     def _prove(self, witness_words, r: int, s: int, peaks):
         rs = r * s % R_FR

@@ -92,7 +92,7 @@ def device_time(fn, calls: int) -> tuple:
     replay to warm up, one timed by CUDA events ("graph"). Where capture
     fails (a call that synchronises with the host), the summed durations
     of the device activity torch.profiler records over `calls` eager
-    calls ("profiler"). Launch counts (device.counts) are put back as they
+    calls after device.traced's lead ("profiler"). Launch counts (device.counts) are put back as they
     were: the captured or profiled calls are not the main path's."""
     from .. import device as D
     saved = dict(D.counts)
@@ -121,12 +121,14 @@ def device_time(fn, calls: int) -> tuple:
 
 
 def _profiled_ms(fn, calls: int, saved: dict) -> float:
-    from torch.profiler import ProfilerActivity, profile
     from .. import device as D
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    box = {}
+    with D.traced(torch.device("cuda", torch.cuda.current_device()),
+                  lambda p: box.update(evs=p.events())):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     D.counts.update(saved)
-    us = sum(e.self_device_time_total for e in prof.key_averages())
+    us = sum(e.time_range.end - e.time_range.start
+             for e in D.block_events(box["evs"]))
     return us / 1e3 / calls

@@ -579,10 +579,12 @@ def test_prep_kernels_refuse_on_card():
 @pytest.mark.parametrize("c", [4, 8, 9, 13, 16])
 @pytest.mark.parametrize("shape,kind", [
     ((2, 4, 4096), "random"), ((1, 256), "random"), ((2, 4, 4352), "zeros"),
-    ((2, 4, 4352), "top"), ((2, 4, 12544), "one value a tile")])
+    ((2, 4, 4352), "top"), ((2, 4, 12544), "one value a tile"),
+    ((2, 3, 5 * 8192 + 768), "random")])
 def test_digit_sort_kernel_matches_plain(c, shape, kind):
     """Sorted keys, permutation, sign columns and boundaries, word for
-    word, on random digits and edge tables (ragged tiles included)."""
+    word, on random digits and edge tables (ragged tiles included; rows
+    of several tiles, whose scatter blocks look back)."""
     dev = _dev()
     from rapidsnark_tpu_torch import device as D
     from rapidsnark_tpu_torch.ops import msm as TM

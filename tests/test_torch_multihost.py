@@ -225,3 +225,29 @@ def test_profile_trace(tmp_path, monkeypatch):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         assert any(e.get("ph") == "X" for e in events)
+
+
+def test_block_events_split_after_the_lead():
+    """device.block_events: a traced block's card events are those that
+    start after the last lead kernel ends, on the card's timeline (a host
+    range does not split them); a trace without a lead kernel raises."""
+    from types import SimpleNamespace
+    from rapidsnark_tpu_torch import device as D
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, lo, hi, kind=cuda):
+        return SimpleNamespace(name=name, device_type=kind,
+                               time_range=SimpleNamespace(start=lo, end=hi))
+
+    lead = [ev(f"void at::cuda::{D.TRACE_LEAD}(long)", 0, 270),
+            ev(f"void at::cuda::{D.TRACE_LEAD}(long)", 271, 272)]
+    block = [ev("k_sort_count", 280, 290), ev("Memcpy HtoD", 272, 275),
+             ev("k_scan_g1", 300, 400)]
+    early = [ev("k_fused_pass", 100, 110), ev("chip_smoke.prove", 0, 500, cpu)]
+    got = D.block_events(lead + early + block)
+    assert [e.name for e in got] == ["k_sort_count", "Memcpy HtoD",
+                                     "k_scan_g1"]
+    # the long spin lost: the marker alone splits the trace
+    assert D.block_events(lead[1:] + block) == block
+    with pytest.raises(RuntimeError, match="lost its lead"):
+        D.block_events(early + block)

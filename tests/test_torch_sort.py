@@ -10,17 +10,22 @@ the digits with an iota (sorted keys and permutation), `jnp.searchsorted
 the scan's column layout, as rapidsnark_tpu/ops/msm.py `_window_group`
 builds them; gather_cols against the JAX package's `_gather_last` on the
 same packed table (convert.py's word layout) moved into that layout. The
-models run csrc/sort.cu's radix passes (sort_plan's bit ranges, per-tile
-histograms, one flat scan, the warps' stable ranks, the tail's sign runs and
-boundary writes) and csrc/gather.cu's blocks (index spans, the
-(column, chunk, piece) items) with the kernels' index arithmetic in
-numpy. Sizes: n in {256, 4096} (and ragged tiles), G = 2 windows of 4
-table rows, c in {4, 8, 9, 13, 16}, and the edge tables: all keys 0,
-keys 0 and 1 only, every key 2^(c+1) - 1, one row of exactly 256,
-descending keys, one key value in every tile. Tolerance: exact words
-(integers)."""
+models run csrc/sort.cu's launches (sort_plan's bit ranges; the counting
+pass's partial histograms of every pass's digits, the scan of them into
+digit bases, each scatter pass's stable warp ranks and decoupled
+look-back with its tiles published in a given order, the packed 64-bit
+intermediate, the tail's sign runs and boundary writes with its list of
+long runs) and csrc/gather.cu's blocks (index spans, the (column, chunk,
+piece) items) with the kernels' index arithmetic in numpy. Sizes: n in
+{256, 4096, 4352} (one tile a row) and 3 tiles + 256 keys (the
+look-back's tile orders: launch, reversed, a seeded shuffle), G = 2
+windows of 2-4 table rows, c in {4, 8, 9, 13, 16}, and the edge tables:
+all keys 0, keys 0 and 1 only, every key 2^(c+1) - 1, one row of exactly
+256, descending keys, one key value in every tile. Tolerance: exact
+words (integers)."""
 
 import os
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +45,12 @@ torch.set_num_threads(1)
 
 CS = [4, 8, 9, 13, 16]
 C = 256
-TAIL_SPAN = 32      # chunks a block of csrc/sort.cu k_sort_tail
+# csrc/sort.cu: warps and keys a thread of a scatter block; chunks a
+# block of k_sort_tail, the boundaries a thread of it writes, the longer
+# runs a block lists
+W, KPT = 16, 16
+TAIL_SPAN, TAIL_RUN, TAIL_GAPS = 32, 32, 1024
+ORDERS = ["launch", "reversed", 7]
 EDGES = ["zeros", "zero_one", "top", "one_row_256", "descending",
          "one_value_per_tile"]
 
@@ -98,65 +108,130 @@ def _jax_bucket_order(digits, c):
     return sd, np.asarray(perm), sign, np.asarray(cum)
 
 
-def _model_sort(digits, c):
-    """csrc/sort.cu rs_digit_sort on (R, n) keys, step by step."""
+def _tile_order(order, tiles):
+    """The order in which a scatter pass's blocks publish their tiles:
+    "launch", "reversed", or a seeded shuffle."""
+    if order == "launch":
+        return list(range(tiles))
+    if order == "reversed":
+        return list(range(tiles))[::-1]
+    return list(np.random.RandomState(order).permutation(tiles))
+
+
+def _model_sort(digits, c, order="launch"):
+    """csrc/sort.cu rs_digit_sort on (R, n) keys, launch by launch: the
+    counting pass, the scan of its counts, the scatter passes (their
+    tiles published and looked back in `order`: _tile_order's) and the
+    tail."""
     shape = digits.shape
     n = shape[-1]
     keys = digits.reshape(-1, n).astype(np.int64)
     R = keys.shape[0]
     plan = TM.sort_plan(c, n, R)
-    T, ntiles, W = TM.SORT_TILE, plan.tiles, 8
-    hist_rows = 0
-    sign = np.full(C * R * (n // C), -1, np.int64)
+    T, ntiles, run = plan.tile, plan.tiles, 32 * KPT
+    offs = np.cumsum([0] + [1 << b for _, b in plan.passes])
+    rows = np.arange(R)[:, None]
+    # k_sort_count: a block a (row, chunk) counts every pass's digits of
+    # its keys (the pass's bits of the key itself)
+    partial = np.zeros((R, plan.chunks, plan.bins), np.int64)
+    for p, (shift, bits) in enumerate(plan.passes):
+        np.add.at(partial, (rows, (np.arange(n) // TM.COUNT_CHUNK)[None, :],
+                            offs[p] + ((keys >> shift) & ((1 << bits) - 1))),
+                  1)
+    # k_sort_scan: a block a (row, pass); base = row * n + the row's keys
+    # with a lower digit of the pass
+    tot = partial.sum(axis=1)
+    base = np.zeros_like(tot)
+    for p in range(len(plan.passes)):
+        seg = tot[:, offs[p]:offs[p + 1]]
+        base[:, offs[p]:offs[p + 1]] = rows * n + np.cumsum(seg, 1) - seg
     vals = None
-    for shift, bits in plan.passes:
+    for p, (shift, bits) in enumerate(plan.passes):
         nbins = 1 << bits
+        last = p == len(plan.passes) - 1
         dig = (keys >> shift) & (nbins - 1)
-        # k_sort_hist: (row, digit, tile) counts, digit-major
-        hist = np.zeros((R, nbins, ntiles), np.int64)
-        np.add.at(hist, (np.arange(R)[:, None], dig,
-                         (np.arange(n) // T)[None, :]), 1)
-        hist_rows = max(hist_rows, hist.size)
-        # k_sort_scan_*: one flat exclusive scan; row r starts at r * n
-        offs = (np.cumsum(hist.ravel()) - hist.ravel()).reshape(hist.shape)
-        assert (offs[:, 0, 0] == np.arange(R) * n).all()
+        # each block's own work: warp w takes the w-th run of 32 * KPT
+        # keys in rounds of 32; a key's rank: the earlier keys of its
+        # digit in its run (the rounds' counters and the multisplit's lower
+        # peers); the warps' counts scanned in warp order; slots by digit
+        local = []
+        for t in range(R * ntiles):
+            r, tile = divmod(t, ntiles)
+            lo, valid = tile * T, min(T, n - tile * T)
+            dt = dig[r, lo:lo + valid]
+            w = np.arange(valid) // run
+            grp = w * nbins + dt
+            o = np.argsort(grp, kind="stable")
+            rk = np.empty(valid, np.int64)
+            rk[o] = np.arange(valid) - np.searchsorted(grp[o], grp[o])
+            wc = np.zeros((W, nbins), np.int64)
+            np.add.at(wc, (w, dt), 1)
+            cnt = wc.sum(axis=0)
+            dstart = np.cumsum(cnt) - cnt
+            slot = dstart[dt] + (np.cumsum(wc, 0) - wc)[w, dt] + rk
+            assert sorted(slot) == list(range(valid))
+            local.append((slot, cnt, dstart))
+        # the look-back: status words (flag, count) a (tile, digit); the
+        # tiles publish their counts in `order` (a row's tile 0 as its
+        # inclusive prefix); after each, every waiting tile walks back
+        # over aggregates until an inclusive prefix, or waits on a tile
+        # that has published nothing
+        flag = np.zeros(R * ntiles, np.int64)          # 0, AGG 1, INC 2
+        count = np.zeros((R * ntiles, nbins), np.int64)
+        prefix = {}
+        waiting = []
+        for t in _tile_order(order, R * ntiles):
+            first = t % ntiles == 0
+            flag[t], count[t] = (2 if first else 1), local[t][1]
+            if first:
+                prefix[t] = np.zeros(nbins, np.int64)
+            else:
+                waiting.append(t)
+            moved = True
+            while moved:
+                moved = False
+                for u in list(waiting):
+                    acc, pt = np.zeros(nbins, np.int64), u - 1
+                    while flag[pt] == 1:
+                        acc += count[pt]
+                        pt -= 1
+                    if flag[pt] == 0:
+                        continue
+                    prefix[u] = acc + count[pt]
+                    flag[u], count[u] = 2, prefix[u] + local[u][1]
+                    waiting.remove(u)
+                    moved = True
+        assert not waiting and (flag == 2).all()
         okeys = np.full(R * n, -1, np.int64)
         ovals = np.full(R * n, -1, np.int64)
-        for r in range(R):
-            for t in range(ntiles):
-                valid = min(T, n - t * T)
-                kt = keys[r, t * T:t * T + valid]
-                dt = dig[r, t * T:t * T + valid]
-                vt = (np.arange(valid) + t * T if vals is None
-                      else vals[r, t * T:t * T + valid])
-                # warps: runs of 32 * KPT keys; a key's rank among the
-                # earlier keys of its digit in its run, then the earlier
-                # runs' counts of that digit (warp order)
-                run = 32 * (T // (32 * W))
-                wc = np.zeros((W, nbins), np.int64)
-                rk = np.zeros(valid, np.int64)
-                for p in range(valid):
-                    w = p // run
-                    rk[p] = wc[w, dt[p]]
-                    wc[w, dt[p]] += 1
-                woff = np.cumsum(wc, axis=0) - wc
-                cnt = wc.sum(axis=0)
-                dstart = np.cumsum(cnt) - cnt
-                slot = dstart[dt] + woff[np.arange(valid) // run, dt] + rk
-                assert sorted(slot) == list(range(valid))
-                tk = np.empty(valid, np.int64)
-                tv = np.empty(valid, np.int64)
-                tk[slot], tv[slot] = kt, vt
-                goff = offs[r, :, t] - dstart
-                g = goff[(tk >> shift) & (nbins - 1)] + np.arange(valid)
-                okeys[g], ovals[g] = tk, tv
+        for t in range(R * ntiles):
+            r, tile = divmod(t, ntiles)
+            slot, cnt, dstart = local[t]
+            before = np.zeros(nbins, np.int64)
+            for u in range(r * ntiles, t):
+                before += local[u][1]
+            assert (prefix[t] == before).all()
+            lo, valid = tile * T, min(T, n - tile * T)
+            tk = np.empty(valid, np.int64)
+            tv = np.empty(valid, np.int64)
+            tk[slot] = keys[r, lo:lo + valid]
+            tv[slot] = (np.arange(lo, lo + valid) if vals is None
+                        else vals[r, lo:lo + valid])
+            goff = base[r, offs[p]:offs[p + 1]] + prefix[t] - dstart
+            g = goff[(tk >> shift) & (nbins - 1)] + np.arange(valid)
+            okeys[g], ovals[g] = tk, tv
         assert (okeys >= 0).all() and (ovals >= 0).all()
+        if not last:
+            # the intermediate: one 64-bit word a key, key low, index high
+            mid = (okeys & 0xffffffff) | (ovals << 32)
+            okeys, ovals = mid & 0xffffffff, mid >> 32
         keys, vals = okeys.reshape(R, n), ovals.reshape(R, n)
-    assert hist_rows <= plan.hist_words
     # k_sort_tail: a block a row's span of TAIL_SPAN chunks, sign items
     # (column, chunk); a key and the next one in another bucket write the
-    # boundaries between them, the first and the last key the ends
+    # boundaries between them, the first and the last key the ends; a run
+    # longer than TAIL_RUN goes to the block's list
     nb = n // C
+    sign = np.full(C * R * nb, -1, np.int64)
     for r in range(R):
         for k0 in range(0, nb, TAIL_SPAN):
             T = min(TAIL_SPAN, nb - k0)
@@ -165,28 +240,35 @@ def _model_sort(digits, c):
             sign[(col * R + r) * nb + k0 + t] = keys[r, (k0 + t) * C + col] & 1
     assert (sign >= 0).all()
     M = 1 << (c - 1)
-    cum = np.full((R, M + 1), -1, np.int64)
+    cum = np.zeros((R, M + 1), np.int64)
+    writes = np.zeros((R, M + 1), np.int64)
     b = np.clip(keys >> 1, 0, M + 1)
     for r in range(R):
-        cum[r, :b[r, 0]] = 0
         nxt = np.append(b[r, 1:], M + 1)
-        for p in np.nonzero(nxt != b[r])[0]:
-            cum[r, b[r, p]:nxt[p]] = p + 1
-    assert (cum >= 0).all()
+        runs = [(0, b[r, 0], 0, 0)] + [
+            (b[r, p], nxt[p], p + 1, p) for p in np.nonzero(nxt != b[r])[0]]
+        listed = Counter()
+        for lo, hi, v, p in runs:
+            cum[r, lo:hi] = v
+            writes[r, lo:hi] += 1
+            if hi - lo > TAIL_RUN:
+                listed[p // (TAIL_SPAN * C)] += 1
+        assert max(listed.values(), default=0) <= TAIL_GAPS
+    assert (writes == 1).all()
     bsh = shape[:-1]
     return (keys.reshape(shape), vals.reshape(shape),
             sign.reshape((C,) + bsh + (n // C,)), cum.reshape(bsh + (M + 1,)))
 
 
-def _check(digits, c, model=True):
+def _check(digits, c, orders=("launch",)):
     want = _jax_bucket_order(digits, c)
     got = TM.digit_sort(torch.from_numpy(digits), c)
     assert [g.dtype for g in got] == [torch.int32] * 4
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert np.array_equal(g.numpy(), w)
-    if model:
-        for m, w in zip(_model_sort(digits, c), want):
+    for order in orders:
+        for m, w in zip(_model_sort(digits, c, order), want):
             assert np.array_equal(m, w)
 
 
@@ -195,7 +277,18 @@ def _check(digits, c, model=True):
 def test_digit_sort_matches_jax(c, n):
     """Random digits of G = 2 windows x 4 rows, the wrapper (plain on the
     CPU) and the kernel's model against the JAX package."""
-    _check(_digits(c * 1000 + n, (2, 4, n), c), c, model=n <= 4352)
+    _check(_digits(c * 1000 + n, (2, 4, n), c), c)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("c", CS)
+def test_lookback_any_tile_order(c, order):
+    """Rows of three whole tiles and a ragged one: the model's scatter
+    passes give the JAX package's order whichever order their tiles
+    publish and look back in (launch order, reversed, a seeded
+    shuffle)."""
+    n = 3 * TM.SORT_TILE + 256
+    _check(_digits(c * 7 + 1, (2, 2, n), c), c, orders=(order,))
 
 
 @pytest.mark.parametrize("kind", EDGES)
@@ -204,8 +297,8 @@ def test_digit_sort_edge_tables(c, kind):
     """All keys 0 (padding); keys 0 and 1 only (key 1, a zero digit of a
     negated GLV half, belongs in bucket 0); every key 2^(c+1) - 1 (in no
     bucket); one row of 256; descending keys; one value in every tile
-    (one shared counter takes a tile)."""
-    _check(_edge(kind, c), c, model=kind != "one_value_per_tile" or c == 16)
+    (one status word's digit a tile), in launch and reversed order."""
+    _check(_edge(kind, c), c, orders=("launch", "reversed"))
 
 
 def test_keys_zero_and_one_fall_in_bucket_zero():
@@ -219,39 +312,65 @@ def test_keys_zero_and_one_fall_in_bucket_zero():
 
 @pytest.mark.parametrize("c", CS)
 def test_sort_plan(c):
-    """The pass plan: bit ranges cover the c + 1 key bits low first in
+    """The launch plan: bit ranges cover the c + 1 key bits low first in
     passes of at most SORT_MAX_BITS (one pass up to c = 9, two from
-    c = 10), tiles of SORT_TILE keys, and the workspace the wrapper
-    allocates."""
+    c = 10), tiles of SORT_TILE keys, the counting pass's chunks, a status
+    word a (row, tile, digit) of every pass, the workspace the wrapper
+    allocates, and the traffic: 48 B a key with two passes, 32 with one,
+    and the workspace's words."""
     want = {4: ((0, 5),), 8: ((0, 9),), 9: ((0, 10),),
             13: ((0, 7), (7, 7)), 16: ((0, 9), (9, 8))}[c]
     n, rows = 1 << 23, 8
     plan = TM.sort_plan(c, n, rows)
     assert plan.passes == want
+    assert plan.tile == TM.SORT_TILE == 8192
     assert plan.tiles == n // TM.SORT_TILE
-    b0 = want[0][1]
-    assert plan.hist_words == rows * (1 << b0) * plan.tiles
-    assert plan.part_words == -(-plan.hist_words // TM.SCAN_CHUNK)
-    ping = 8 * rows * n if len(want) > 1 else 0
-    assert plan.workspace_bytes == ping + 4 * (plan.hist_words
-                                               + plan.part_words)
-    assert TM.sort_plan(c, 4352, 3).tiles == 2
+    assert plan.chunks == n // TM.COUNT_CHUNK
+    bins = sum(1 << b for _, b in want)
+    assert plan.bins == bins
+    assert plan.status_words == rows * plan.tiles * bins
+    assert plan.work_words == (TM.SORT_CTR_WORDS + plan.status_words
+                               + rows * (plan.chunks + 1) * bins)
+    two = len(want) > 1
+    assert plan.workspace_bytes == (8 * rows * n if two else 0) \
+        + 4 * plan.work_words
+    keys = rows * n
+    per_key = 48 if two else 32
+    M = 1 << (c - 1)
+    assert plan.traffic_bytes == per_key * keys + 4 * rows * (M + 1) \
+        + 16 * plan.status_words + 8 * rows * (plan.chunks + 1) * bins
+    assert plan.traffic_bytes < (per_key + 3) * keys
+    assert TM.sort_plan(c, 4352, 3).tiles == 1
+    assert TM.sort_plan(c, 3 * TM.SORT_TILE + 256, 3).tiles == 4
 
 
 def test_sort_plan_every_c():
     for c in range(1, 17):
-        passes = TM.sort_plan(c, 256, 1).passes
+        plan = TM.sort_plan(c, 256, 1)
+        passes = plan.passes
         assert [s for s, _ in passes] == [sum(b for _, b in passes[:i])
                                           for i in range(len(passes))]
         assert sum(b for _, b in passes) == c + 1
         assert all(1 <= b <= TM.SORT_MAX_BITS for _, b in passes)
         assert len(passes) == (1 if c <= 9 else 2)
+        assert plan.bins == sum(1 << b for _, b in passes) <= 1024
+        assert (plan.tiles, plan.chunks) == (1, 1)
+        assert plan.status_words == plan.bins
     with pytest.raises(ValueError, match="digit_sort"):
         TM.sort_plan(17, 256, 1)
 
 
+def test_sort_plan_refuses_a_row_past_the_status_count():
+    """A status word holds a 30-bit count: a row of 2^30 keys or more is
+    refused (R * n < 2^31 allows up to 2^31 - 256)."""
+    assert TM.sort_plan(16, (1 << 30) - 256, 1).tiles == 1 << 17
+    with pytest.raises(ValueError, match="30-bit"):
+        TM.sort_plan(16, 1 << 30, 1)
+
+
 @pytest.mark.parametrize("case", ["key_too_big", "key_negative", "ragged_n",
-                                  "short_n", "dtype", "c_range", "not_card"])
+                                  "short_n", "dtype", "c_range", "not_card",
+                                  "row_past_status"])
 def test_digit_sort_refuses(case):
     d = torch.zeros((2, 512), dtype=torch.int64)
     c = 8
@@ -269,6 +388,8 @@ def test_digit_sort_refuses(case):
         c = 0
     elif case == "not_card":
         d = d.to("meta")
+    elif case == "row_past_status":
+        d = torch.zeros((1, 1 << 30), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="digit_sort"):
         TM.digit_sort(d, c)
 
