@@ -1,0 +1,8 @@
+"""scan_g1.roofline_pct: k_scan_g1's share of its roofline in the
+traced proofs (benchmark/scanroof.py)."""
+
+from benchmark.scanroof import share
+
+
+def read(run):
+    return share(run, "g1")
