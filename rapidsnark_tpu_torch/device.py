@@ -22,6 +22,8 @@ from typing import Dict, Optional
 
 import torch
 
+from .utils.logger import SPAN_PREFIX
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build", "rapidsnark_tpu_torch")
@@ -133,9 +135,10 @@ def traced(dev: torch.device, on_ready):
 
 def block_events(events) -> list:
     """The card's events of a `traced` block: those that start after the
-    end of the last lead spin in the trace, on the card's timeline.
-    Raises when the trace holds no lead spin: it lost more than the
-    lead, so the block's first records may be gone too."""
+    end of the last lead spin in the trace, on the card's timeline, less
+    the port's span ranges mirrored there (utils/logger.phase), which
+    are no card work. Raises when the trace holds no lead spin: it lost
+    more than the lead, so the block's first records may be gone too."""
     cuda_t = torch.autograd.DeviceType.CUDA
     card = [e for e in events if e.device_type == cuda_t]
     ends = [e.time_range.end for e in card if TRACE_LEAD in e.name]
@@ -148,7 +151,8 @@ def block_events(events) -> list:
             f"us, the first host event at {min(host, default=None)} us")
     start = max(ends)
     return [e for e in card if e.time_range.start >= start
-            and TRACE_LEAD not in e.name]
+            and TRACE_LEAD not in e.name
+            and not e.name.startswith(SPAN_PREFIX)]
 
 
 def reset_counts() -> None:

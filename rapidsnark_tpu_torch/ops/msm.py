@@ -36,6 +36,14 @@ ordering run on hand-written kernels, each beside its plain version:
 For a tensor on the CPU a wrapper runs the plain PyTorch version; for a
 CUDA tensor it launches the kernel on the current stream and counts the
 launch, or raises. There is no fallback.
+
+Five spans (utils/logger.phase, named without a sink) cover a prove's
+MSM work: msms.prep (the digits and the slice's phi image), msms.sort,
+msms.gather, msms.scan (the chunk scans and their totals' prefix) and
+msms.buckets (the boundary lookups, the telescoped difference, the
+halving tree and the add into the running totals). While spans are on
+they add into the calling Prover's last_phases; called with no Prover
+they only mark the profiler's trace.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch
 
 from .. import device as D
 from ..ref.field import P as _P
+from ..utils.logger import phase
 from . import field as FF
 from . import fused
 from . import glv as GLV
@@ -696,18 +705,24 @@ def _window_group(curve, pts, digits, n: int, c: int):
     digits. Returns packed projective (G, *b, L, 8)."""
     bshape = tuple(digits.shape[:-1])            # (G, *b)
     M = 1 << (c - 1)
-    keys, perm, sign, cum = digit_sort(digits, c)
+    dev = digits.device
+    with phase("msms.sort", device=dev):
+        keys, perm, sign, cum = digit_sort(digits, c)
     del keys
-    cols = gather_cols(pts, perm)                 # (C, G, *b, nb, A, 8)
+    with phase("msms.gather", device=dev):
+        cols = gather_cols(pts, perm)             # (C, G, *b, nb, A, 8)
     del perm
-    within, excl = _chunked_prefix(curve, cols, sign, bshape, n // _CHUNK)
+    with phase("msms.scan", device=dev):
+        within, excl = _chunked_prefix(curve, cols, sign, bshape,
+                                       n // _CHUNK)
     del cols, sign
-    A = _ps_at(curve, within, excl, cum)
-    del within, excl
-    top = A[..., M:, :, :].expand(bshape + (M,) + tuple(A.shape[-2:]))
-    head = A[..., :M, :, :]
-    diff = fused.add(curve, top.contiguous(), point_neg(curve, head))
-    return _tree_total(curve, diff, M)
+    with phase("msms.buckets", device=dev):
+        A = _ps_at(curve, within, excl, cum)
+        del within, excl
+        top = A[..., M:, :, :].expand(bshape + (M,) + tuple(A.shape[-2:]))
+        head = A[..., :M, :, :]
+        diff = fused.add(curve, top.contiguous(), point_neg(curve, head))
+        return _tree_total(curve, diff, M)
 
 
 def _phi(curve, pts):
@@ -758,20 +773,23 @@ def _segmented_groups(sc, pts, scalars, c: int, G_: int, nwin: int,
     ngroups = nwin // G_
     accs = [point_inf(sc, (G_,) + bshape, scalars.device)
             for _ in range(ngroups)]
+    dev = scalars.device
     for off in range(0, 2 * npts if glv else npts, segment):
         offp = off % npts
         scseg = scalars[..., offp:offp + segment, :]
-        if glv:
-            pseg = _table_slice(sc, pts, off, segment)
-            dseg = glv_digits(scseg, c, 0, nwin, GLV.params_for(sc),
-                              half=int(off >= npts))
-        else:
-            pseg = pts[..., off:off + segment, :, :]
-            dseg = glv_digits(scseg, c, 0, nwin)
+        with phase("msms.prep", device=dev):
+            if glv:
+                pseg = _table_slice(sc, pts, off, segment)
+                dseg = glv_digits(scseg, c, 0, nwin, GLV.params_for(sc),
+                                  half=int(off >= npts))
+            else:
+                pseg = pts[..., off:off + segment, :, :]
+                dseg = glv_digits(scseg, c, 0, nwin)
         for ig in range(ngroups):
             t = _window_group(sc, pseg, dseg[ig * G_:(ig + 1) * G_],
                               segment, c)
-            accs[ig] = fused.add(sc, accs[ig], t.contiguous())
+            with phase("msms.buckets", device=dev):
+                accs[ig] = fused.add(sc, accs[ig], t.contiguous())
     return accs
 
 
@@ -851,11 +869,13 @@ def msm(curve, pts, scalars, c: int, window_group: int = 5,
         groups = _segmented_groups(sc, pts, scalars, c, G_, nwin, segment,
                                    glv)
     else:
-        if glv:
-            digits = glv_digits(scalars, c, 0, nwin, GLV.params_for(curve))
-            p2 = _table_slice(sc, pts, 0, n)
-        else:
-            digits, p2 = glv_digits(scalars, c, 0, nwin), pts
+        with phase("msms.prep", device=scalars.device):
+            if glv:
+                digits = glv_digits(scalars, c, 0, nwin,
+                                    GLV.params_for(curve))
+                p2 = _table_slice(sc, pts, 0, n)
+            else:
+                digits, p2 = glv_digits(scalars, c, 0, nwin), pts
         groups = [_window_group(sc, p2, digits[ig * G_:(ig + 1) * G_], n, c)
                   for ig in range(nwin // G_)]
     wpts = torch.cat(groups, dim=0)                # (W, *b, L, 8) on sc

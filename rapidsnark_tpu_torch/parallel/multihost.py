@@ -10,7 +10,7 @@ rank, the world size, the rank's device and the backend.
     initialize()   joins this process to the job (RSTPU_COORD /
                    RSTPU_NPROCS / RSTPU_PROC_ID; explicit arguments win)
     global_mesh()  the Mesh of the job (a world of one without a job)
-    shard_rows     a rank's contiguous slice of a host array, uploaded
+    shard_rows     a rank's contiguous slice of a host array, on the host
     replicate      a host array, whole, on the rank's device
 
 The three collectives (`Mesh.all_gather`, a tiled `Mesh.all_to_all`,
@@ -223,11 +223,12 @@ def _host_i32(a) -> torch.Tensor:
 def shard_rows(host_array, mesh: Mesh, axis: int = 0,
                length: Optional[int] = None) -> torch.Tensor:
     """This rank's contiguous 1/size slice of `host_array` along `axis`,
-    on the rank's device (the counterpart of put_sharded): only the
-    slice is read, so a memory-mapped table never exists whole on any
-    card. `length` (default the axis's size) is the padded length that
-    is cut: the rows past the array's end are zeros. It must split
-    evenly over the ranks."""
+    an int32 tensor on the host for the caller to copy to the rank's
+    device (the counterpart of put_sharded): only the slice is read, so
+    a memory-mapped table never exists whole on any card. `length`
+    (default the axis's size) is the padded length that is cut: the
+    rows past the array's end are zeros. It must split evenly over the
+    ranks."""
     n = host_array.shape[axis]
     length = n if length is None else length
     if length % mesh.size or length < n:
@@ -244,7 +245,7 @@ def shard_rows(host_array, mesh: Mesh, axis: int = 0,
         shape[axis] = per - part.shape[axis]
         part = torch.cat([part, torch.zeros(shape, dtype=part.dtype)],
                          dim=axis)
-    return part.to(mesh.device)
+    return part
 
 
 def replicate(host_array, mesh: Mesh) -> torch.Tensor:

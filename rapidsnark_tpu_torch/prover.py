@@ -59,7 +59,7 @@ from .parallel.pntt import DNTTPlan, dntt
 from .ref.field import FQ_CTX, R_FR, fr_w
 from .ref.groth16 import Proof, sample_rs
 from .utils.hostcurve import G1H, G2H
-from .utils.logger import phase
+from .utils.logger import collect, phase
 
 
 def _log2(n: int) -> int:
@@ -172,20 +172,27 @@ class Prover:
         self.ntt_seq = config.ntt_sequential(self.power)
 
         # point tables: packed affine (rows, nmax, A, 8), the zkey layout;
-        # with a mesh the rank's nmax/D rows of each
-        with self._setup_phase("table_upload"):
-            g1_tables = (zkey.points_h, zkey.points_a, zkey.points_b1,
-                         zkey.points_c)
+        # with a mesh the rank's nmax/D rows of each. table_stage is the
+        # host's part (padding, stacking, int32 copies: where the pages of
+        # a mapped zkey are read), table_copy the host-to-card copies
+        g1_tables = (zkey.points_h, zkey.points_a, zkey.points_b1,
+                     zkey.points_c)
+        with self._setup_phase("table_stage"):
             if mesh is None:
-                g1 = np.stack([_pad_points(t, self.nmax) for t in g1_tables])
-                self.pts_g1 = _i32(g1).to(dev)              # (4, nmax, 2, 8)
-                del g1
-                b2 = _i32(_pad_points(zkey.points_b2, self.nmax)[None])
-                b2 = b2.to(dev)                             # (1, nmax, 4, 8)
+                g1 = _i32(np.stack([_pad_points(t, self.nmax)
+                                    for t in g1_tables]))
             else:
-                self.pts_g1 = torch.stack([
-                    MH.shard_rows(t, mesh, 0, self.nmax) for t in g1_tables])
-                b2 = MH.shard_rows(zkey.points_b2, mesh, 0, self.nmax)[None]
+                g1 = torch.stack([MH.shard_rows(t, mesh, 0, self.nmax)
+                                  for t in g1_tables])
+        with self._setup_phase("table_copy"):
+            self.pts_g1 = g1.to(dev)                        # (4, nmax, 2, 8)
+        del g1
+        with self._setup_phase("table_stage"):
+            b2 = (_i32(_pad_points(zkey.points_b2, self.nmax)[None])
+                  if mesh is None else
+                  MH.shard_rows(zkey.points_b2, mesh, 0, self.nmax)[None])
+        with self._setup_phase("table_copy"):
+            b2 = b2.to(dev)                                 # (1, nmax, 4, 8)
         with self._setup_phase("g2_rescale"):
             self.pts_g2 = MSM.g2_rescale_packed(b2)
             del b2
@@ -234,7 +241,8 @@ class Prover:
     @contextlib.contextmanager
     def _setup_phase(self, name: str):
         """Time one part of the set-up, its card work included, into
-        setup_phases and the trace log."""
+        setup_phases and the trace log (a part timed in pieces adds them
+        up)."""
         with phase(name, self.setup_phases):
             yield
             self._sync()
@@ -427,7 +435,13 @@ class Prover:
         given, on the card) with the device peak of the front and of each
         MSM stage in bytes. With a mesh, r and s are rank 0's. With
         RSTPU_PROFILE set, a torch.profiler trace of the prove is written
-        into that directory (last_trace names the file)."""
+        into that directory (last_trace names the file). While spans are
+        on (a profiler records, or RSTPU_LOG_LEVEL=trace; utils/logger)
+        last_phases also holds the spans inside front and msms, seconds
+        of the card on a card: front.upload (the witness's copy) and
+        msms.prep / sort / gather / scan / buckets, each summed over the
+        MSMs' slices and window groups; each is also a profiler range
+        "rstpu.<key>"."""
         if r is None:
             r = sample_rs()
         if s is None:
@@ -479,14 +493,19 @@ class Prover:
                              f"({self.n_vars}, 8)")
         self.last_phases = {}
         tables = self.tables()
-        with phase("front", self.last_phases), self._peak("front", peaks):
-            witness = _i32(wit).to(self.device)
-            rows = self.front(witness, tables)
-            self._sync()
-        with phase("msms", self.last_phases):
-            g1w, g2w = self.msms(rows, tables, peaks)
-            g1w = g1w.cpu().numpy().view(np.uint32)
-            g2w = g2w.cpu().numpy().view(np.uint32)
+        with collect(self.last_phases) as spans:
+            with phase("front", self.last_phases), \
+                    self._peak("front", peaks):
+                witness = _i32(wit)
+                with phase("front.upload", device=self.device):
+                    witness = witness.to(self.device)
+                rows = self.front(witness, tables)
+                self._sync()
+            with phase("msms", self.last_phases):
+                g1w, g2w = self.msms(rows, tables, peaks)
+                g1w = g1w.cpu().numpy().view(np.uint32)
+                g2w = g2w.cpu().numpy().view(np.uint32)
+            spans.read_card()        # the copies to the host synchronised
 
         t1 = time.perf_counter()
         nwin = g1w.shape[0]

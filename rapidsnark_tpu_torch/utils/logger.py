@@ -10,18 +10,31 @@ already provides the machinery; this wraps it with the same knobs:
 
 `phase(name)` context manager emits the stage-boundary timeline the
 reference gets from LOG_TRACE lines through prove() (groth16.cpp:51-202),
-so phase timelines stay comparable.
+so phase timelines stay comparable. It is the port's one span: it adds
+its seconds into a dict (a sink), and while spans are on (a torch
+profiler records, or the level is trace) it is also a profiler range
+named "rstpu.<name>", on the clock of the card's kernels in an exported
+Chrome trace, and a span that names a CUDA device times the card's
+stream by a pair of CUDA events instead of the host's clock. `collect`
+gives the spans of a block that name no sink one to add into (the
+Prover's last_phases for one prove) and reads their events once the
+caller has synchronised.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import logging
 import os
 import time
 
+import torch
+
 TRACE = 5
 logging.addLevelName(TRACE, "TRACE")
+# a span's profiler range is SPAN_PREFIX + its name
+SPAN_PREFIX = "rstpu."
 
 _LEVELS = {
     "error": logging.ERROR,
@@ -55,16 +68,74 @@ def get_logger() -> logging.Logger:
     return _logger
 
 
+class Spans:
+    """The spans of a `collect` block: the sink that spans naming none add
+    into while spans are on, and their card event pairs not yet read."""
+
+    def __init__(self, sink: dict):
+        self.sink = sink
+        self.pending: list = []
+
+    def read_card(self) -> None:
+        """Add each pending event pair's card seconds into its sink. Call
+        after a synchronisation of the stream the events were recorded on:
+        reading an event the card has not reached raises, and waiting for
+        it here would add a synchronisation."""
+        for sink, name, start, end in self.pending:
+            sink[name] = sink.get(name, 0.0) + start.elapsed_time(end) / 1e3
+        self.pending.clear()
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("rstpu_spans",
+                                                         default=None)
+
+
 @contextlib.contextmanager
-def phase(name: str, sink: dict | None = None):
-    """Stage-boundary timeline marker (mirrors groth16.cpp LOG_TRACE)."""
-    log = get_logger()
-    log.log(TRACE, "%s begin", name)
-    t0 = time.perf_counter()
+def collect(sink: dict):
+    """Spans that name no sink add into `sink` while the block runs and
+    spans are on; the block reads their card seconds with read_card()."""
+    spans = Spans(sink)
+    token = _ACTIVE.set(spans)
     try:
-        yield
+        yield spans
     finally:
-        dt = time.perf_counter() - t0
-        if sink is not None:
-            sink[name] = dt
-        log.log(TRACE, "%s end (%.3fs)", name, dt)
+        _ACTIVE.reset(token)
+
+
+@contextlib.contextmanager
+def phase(name: str, sink: dict | None = None, device=None):
+    """Stage-boundary timeline marker (mirrors groth16.cpp LOG_TRACE) and
+    span: sink[name] += the block's seconds. With no sink, the seconds go
+    to the enclosing `collect` block's while spans are on, and nowhere
+    otherwise. Spans are on while a torch profiler records (each span is
+    then also the profiler range "rstpu.<name>") or the level is trace.
+    A span on a CUDA `device` inside a `collect` block, spans on, is timed
+    on the card by two CUDA events on the device's current stream, read
+    by Spans.read_card; else by the host's clock."""
+    log = get_logger()
+    profiling = torch.autograd.profiler._is_profiler_enabled
+    spans = (_ACTIVE.get() if profiling or log.isEnabledFor(TRACE)
+             else None)
+    if sink is None and spans is not None:
+        sink = spans.sink
+    card = (spans is not None and device is not None
+            and torch.device(device).type == "cuda")
+    log.log(TRACE, "%s begin", name)
+    with (torch.profiler.record_function(SPAN_PREFIX + name) if profiling
+          else contextlib.nullcontext()):
+        if card:
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            if card:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                spans.pending.append((sink, name, start, end))
+            elif sink is not None:
+                sink[name] = sink.get(name, 0.0) + dt
+            log.log(TRACE, "%s end (%.3fs)", name, dt)

@@ -218,8 +218,9 @@ def test_rung_on_the_committed_fixture(monkeypatch, tmp_path):
     assert (ex["c"], ex["window_group"], ex["nmax"], ex["segment"],
             ex["domain"], ex["fixture_s"]) == (4, 32, 256, 0, 4, None)
     assert {"front", "msms", "host", "total"} <= set(ex["last_phases"])
-    assert set(ex["setup_phases"]) == {"table_upload", "g2_rescale",
-                                       "coef_binning", "ntt_plan"}
+    assert set(ex["setup_phases"]) == {"table_stage", "table_copy",
+                                       "g2_rescale", "coef_binning",
+                                       "ntt_plan"}
     assert ex["device"] == {"platform": "cpu"}
     assert B.parse_rung_output(json.dumps(line), "", 0) == \
         (json.loads(json.dumps(line)), None)

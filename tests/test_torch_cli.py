@@ -40,18 +40,26 @@ def test_cli_wrong_wtns_curve(tmp_path, capsys):
 
 
 def test_cli_null_publics(tmp_path, monkeypatch):
-    """No public signals -> public.json is the bare word null."""
+    """No public signals -> public.json is the bare word null; a given
+    (r, s) reaches Prover.prove, whose proof for it is proof.json; the
+    Prover handed out holds the reads' and the writes' spans."""
     from rapidsnark_tpu_torch import prover as PR
-    proof = Proof(a=(1, 2), b=((1, 2), (3, 4)), c=(5, 6))
-    monkeypatch.setattr(PR.Prover, "prove",
-                        lambda self, w, r=None, s=None: (proof, []))
+    monkeypatch.setattr(
+        PR.Prover, "prove", lambda self, w, r=None, s=None: (
+            Proof(a=(r, s), b=((1, 2), (3, 4)), c=(5, 6)), []))
     pub = tmp_path / "pub.json"
+    out = []
     cli.run_prove(os.path.join(FIXTURES, "multiplier.zkey"),
                   os.path.join(FIXTURES, "multiplier.wtns"),
-                  str(tmp_path / "p.json"), str(pub), device="cpu")
+                  str(tmp_path / "p.json"), str(pub), device="cpu",
+                  prover_out=out, r=11, s=12)
     assert pub.read_text() == "null"
-    assert json.loads((tmp_path / "p.json").read_text())["pi_a"] == \
-        ["1", "2", "1"]
+    assert json.loads((tmp_path / "p.json").read_text()) == \
+        Proof(a=(11, 12), b=((1, 2), (3, 4)), c=(5, 6)).to_json_dict()
+    phases = out[0].last_phases
+    assert {"io.read_zkey", "io.read_wtns", "io.write"} <= set(phases)
+    assert all(phases[k] > 0 for k in ("io.read_zkey", "io.read_wtns",
+                                       "io.write"))
 
 
 def test_cli_prove_in_subprocess_without_jax(tmp_path):

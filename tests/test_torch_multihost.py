@@ -211,7 +211,10 @@ def test_no_hidden_fallback(monkeypatch):
 
 
 def test_profile_trace(tmp_path, monkeypatch):
-    """RSTPU_PROFILE=<dir>: each prove writes a torch.profiler trace."""
+    """RSTPU_PROFILE=<dir>: each prove writes a torch.profiler trace, which
+    holds the port's spans as "rstpu.<key>" ranges, each inside its
+    parent's; the profiled prove's last_phases hold the same keys (host
+    seconds on the CPU), the MSM's five stages within msms."""
     monkeypatch.setenv("RSTPU_PROFILE", str(tmp_path / "prof"))
     prover = Prover(read_zkey(os.path.join(FIXTURES, "multiplier.zkey")),
                     window_bits=8, window_group=16, device="cpu")
@@ -220,11 +223,29 @@ def test_profile_trace(tmp_path, monkeypatch):
     first = prover.last_trace
     prover.prove(wt.values, r=R, s=S)
     assert first != prover.last_trace
+    stages = [f"msms.{k}" for k in ("prep", "sort", "gather", "scan",
+                                    "buckets")]
+    keys = ["front", "front.upload", "msms"] + stages
     for path in (first, prover.last_trace):
         assert os.path.dirname(path) == str(tmp_path / "prof")
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         assert any(e.get("ph") == "X" for e in events)
+        spans = {}
+        for e in events:
+            if e.get("cat") == "user_annotation" and \
+                    e["name"].startswith("rstpu."):
+                spans.setdefault(e["name"][len("rstpu."):], []).append(
+                    (e["ts"], e["ts"] + e["dur"]))
+        assert set(keys) <= set(spans)
+        for k in keys[1:]:
+            parent = k.rsplit(".", 1)[0] if k != "msms" else None
+            for lo, hi in spans[k] if parent else ():
+                assert any(plo <= lo and hi <= phi
+                           for plo, phi in spans[parent]), k
+    got = prover.last_phases
+    assert set(keys) <= set(got) and all(got[k] > 0 for k in keys)
+    assert sum(got[k] for k in stages) <= got["msms"]
 
 
 def test_block_events_split_after_the_lead():
@@ -244,7 +265,9 @@ def test_block_events_split_after_the_lead():
     block = [ev("k_sort_count", 280, 290), ev("Memcpy HtoD", 272, 275),
              ev("k_scan_g1", 300, 400)]
     early = [ev("k_fused_pass", 100, 110), ev("chip_smoke.prove", 0, 500, cpu)]
-    got = D.block_events(lead + early + block)
+    # a span's range mirrored on the card's timeline is no card event
+    got = D.block_events(lead + early + block
+                         + [ev("rstpu.msms.scan", 295, 405)])
     assert [e.name for e in got] == ["k_sort_count", "Memcpy HtoD",
                                      "k_scan_g1"]
     # the long spin lost: the marker alone splits the trace
