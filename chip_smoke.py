@@ -291,8 +291,9 @@ TORCH_ORDER = re.compile(
 
 
 # Montgomery products in the code of one thread of each curve kernel (one
-# add, or one scan column; a G2 lane's two threads run two Fq products
-# for each of its 12 / 11 Fq2 products), the divisor of its SASS counts
+# add, or one scan column; a G2 lane's two threads each take two Fq
+# products for each of its 12 / 11 Fq2 products, reduced together by one
+# `mont2`), the divisor of its SASS counts
 KERNEL_MONTS = {"k_add_g1": 17, "k_add_g2": 24, "k_scan_g1": 14,
                 "k_scan_g2": 22, "k_add_mixed_g1": 11, "k_add_mixed_g2": 26}
 SASS_LINE = re.compile(

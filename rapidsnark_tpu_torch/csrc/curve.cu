@@ -21,11 +21,13 @@
 //   * G1, one thread a lane, 128 threads a block, <= 128 registers: four
 //     blocks an SM, and the scan issues IMADs at close to the card's rate.
 //   * G2, two threads a lane, each holding one Fq2 component of every
-//     value (see "G2, one component a thread"): a thread's chain of a
-//     column is two thirds of a one-thread lane's, and at <= 168
-//     registers (a cap that costs a few spilled words) six blocks of 64
-//     threads fit an SM, twelve warps where one thread a lane (255
-//     registers) left eight, too few to cover the chains' latency.
+//     value (see "G2, one component a thread"): for each Fq2 product a
+//     thread reduces one sum of two Fq products (field.cuh `mont2`, 392
+//     IMADs, 784 a lane where Karatsuba takes 792), and at <= 168
+//     registers (a cap that costs at most a few spilled words) six
+//     blocks of 64 threads fit an SM, twelve warps where one thread a
+//     lane (255 registers) left eight, too few to cover the chains'
+//     latency.
 //   * scan_cols_packed: a lane's accumulator stays in registers across
 //     all K columns of a launch (the TPU's sequential grid covered 1-2
 //     columns per launch; here one launch loops over the whole C = 256
@@ -39,9 +41,9 @@
 //     (64-thread blocks, the same register cap): 13 Fq2 products a lane
 //     by Karatsuba, 39 Fq products, ran on one thread at 254-255
 //     registers and eight warps an SM, under half its bound; a thread
-//     now runs 26 (two a schoolbook component of each of 11 products,
-//     two for each of the two products by b3 = 9/(9+i), whose constant
-//     both threads hold). `add_mixed` reads its affine operand as 16
+//     now runs 13 `mont2`s (one a component of each of 11 products, one
+//     for each of the two products by b3 = 9/(9+i), whose constant both
+//     threads hold). `add_mixed` reads its affine operand as 16
 //     limbs per coordinate and packs limb pairs in registers, the rest
 //     is shared.
 // Points are element-major packed words: a lane's point is L x 8
@@ -176,13 +178,14 @@ __device__ __forceinline__ void g1_add_mixed(P1& r, const P1& p,
 // component c of every Fq2 value. Adds and subtractions stay in the
 // thread; a product hands both operands' components to the partner
 // (__shfl_xor_sync, 16 words) and each thread computes its own component
-// by schoolbook, c = 0: a0b0 - a1b1, c = 1: a1b0 + a0b1 (two Fq products
-// a thread, where Karatsuba takes three a lane); b3 = 3 + 27i (the
+// by schoolbook as one reduction of a sum of two products (`mont2`),
+// c = 0: a0b0 + a1(p - b1), c = 1: a1b0 + a0b1 (1.5 Fq products' IMADs a
+// thread, where Karatsuba takes three a lane); b3 = 3 + 27i (the
 // iso-twist) hands over 27t, and b3 = 9/(9+i) (the zkey's own twist, the
-// strict law) is a product by a constant that both threads hold whole,
-// so only t crosses. Every value is canonical, so the words are those of
-// the plain law, whatever the order of its products. Every thread of a
-// warp runs every shuffle.
+// strict law) is a product by a constant that both threads hold whole
+// with its c1 negated, so only t crosses. Every value is canonical, so
+// the words are those of the plain law, whatever the order of its
+// products. Every thread of a warp runs every shuffle.
 #define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ void xchg8(u32 o[8], const u32 a[8]) {
@@ -196,19 +199,17 @@ __device__ __forceinline__ void sel8(u32 r[8], bool c, const u32 a[8],
   for (int i = 0; i < 8; i++) r[i] = c ? a[i] : b[i];
 }
 
-// r = component c1 of a * b
+// r = component c1 of a * b: c1 = 0 a0 b0 + a1 (p - b1), c1 = 1 a1 b0 + a0 b1
+// (p - b1 is p for b1 = 0, which mont2 takes)
 __device__ __forceinline__ void s_mul(u32 r[8], const u32 a[8], const u32 b[8],
                                       bool c1) {
-  u32 ao[8], bo[8], u[8], v[8], t0[8], t1[8];
+  u32 ao[8], bo[8], nb[8], u[8], v[8];
   xchg8(ao, a);
   xchg8(bo, b);
+  sub8(nb, K_P[FQ_ID], bo);
   sel8(u, c1, bo, b);
-  sel8(v, c1, b, bo);
-  f_mul<FQ_ID>(t0, a, u);
-  f_mul<FQ_ID>(t1, ao, v);
-  f_sub<FQ_ID>(u, t0, t1);
-  f_add<FQ_ID>(v, t0, t1);
-  sel8(r, c1, v, u);
+  sel8(v, c1, b, nb);
+  mont2<FQ_ID>(r, a, u, ao, v);
 }
 
 // component c1 of (3 + 27i) * t: (3t0 - 27t1, 27t0 + 3t1)
@@ -227,16 +228,13 @@ __device__ __forceinline__ void s_mul_b3(u32 r[8], const u32 t[8], bool c1) {
 }
 
 // component c1 of b3 * t on the zkey's twist, b3 = (B0, B1) = 9/(9+i):
-// (t0 B0 - t1 B1, t1 B0 + t0 B1)
+// (t0 B0 + t1 (p - B1), t1 B0 + t0 B1)
 __device__ __forceinline__ void s_mul_b3_twist(u32 r[8], const u32 t[8],
                                                bool c1) {
-  u32 to[8], t0[8], t1[8];
+  u32 to[8], v[8];
   xchg8(to, t);
-  f_mul<FQ_ID>(t0, t, K_B3_G2[0]);
-  f_mul<FQ_ID>(t1, to, K_B3_G2[1]);
-  f_sub<FQ_ID>(to, t0, t1);
-  f_add<FQ_ID>(t1, t0, t1);
-  sel8(r, c1, t1, to);
+  sel8(v, c1, K_B3_G2[1], K_B3_G2_NEG1);
+  mont2<FQ_ID>(r, t, K_B3_G2[0], to, v);
 }
 
 // component c1 of b3 * t: the iso-twist's (ISO) or the zkey twist's b3

@@ -45,6 +45,10 @@ __constant__ u32 K_B3_G2[2][8] = {
      0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u},
     {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
      0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au}};
+// p - K_B3_G2[1]: the Montgomery form of -B1
+__constant__ u32 K_B3_G2_NEG1[8] = {0x62e5ff12u, 0x9168c5b0u, 0xad07a2d2u,
+                                    0x65af5018u, 0x197d565eu, 0x3272d31fu,
+                                    0x01f7f840u, 0x2c9f2108u};
 
 // -p^-1 mod 2^32
 template <int F>
@@ -208,20 +212,9 @@ __device__ __forceinline__ void mont_round(u32 x[8], u32 y[8], const u32 a[8],
   redc_row<F>(y, x, p);
 }
 
-// r = (a*b + m*p) / R, no final subtraction; r may alias a or b
-template <int F>
-__device__ __forceinline__ void mont(u32 r[8], const u32 a[8], const u32 b[8]) {
-  u32 p[8], e[8], o[8];
-  cp8(p, K_P[F]);
-  mul_row<0>(e, a, b[0]);
-  mul_row<1>(o, a, b[0]);
-  redc_row<F>(e, o, p);
-#pragma unroll
-  for (int i = 1; i < 8; i += 2) {
-    mont_round<F>(e, o, a, b[i], p);
-    if (i + 1 < 8) mont_round<F>(o, e, a, b[i + 1], p);
-  }
-  // o is the zero frame, e the odd one: r = e + (o >> 32)
+// the end of the loop: o is the zero frame, e the odd one; r = e + (o >> 32)
+__device__ __forceinline__ void merge_frames(u32 r[8], const u32 e[8],
+                                             const u32 o[8]) {
   asm("add.cc.u32 %0, %8, %16;\n\t"
       "addc.cc.u32 %1, %9, %17;\n\t"
       "addc.cc.u32 %2, %10, %18;\n\t"
@@ -235,6 +228,65 @@ __device__ __forceinline__ void mont(u32 r[8], const u32 a[8], const u32 b[8]) {
       : "r"(e[0]), "r"(e[1]), "r"(e[2]), "r"(e[3]), "r"(e[4]), "r"(e[5]),
         "r"(e[6]), "r"(e[7]), "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]),
         "r"(o[5]), "r"(o[6]), "r"(o[7]));
+}
+
+// r = (a*b + m*p) / R, no final subtraction; r may alias a or b
+template <int F>
+__device__ __forceinline__ void mont(u32 r[8], const u32 a[8], const u32 b[8]) {
+  u32 p[8], e[8], o[8];
+  cp8(p, K_P[F]);
+  mul_row<0>(e, a, b[0]);
+  mul_row<1>(o, a, b[0]);
+  redc_row<F>(e, o, p);
+#pragma unroll
+  for (int i = 1; i < 8; i += 2) {
+    mont_round<F>(e, o, a, b[i], p);
+    if (i + 1 < 8) mont_round<F>(o, e, a, b[i + 1], p);
+  }
+  merge_frames(r, e, o);
+}
+
+// ---- the reduction of a sum of two products ---------------------------
+// mont2: r = (a*b + c*d + m*p) / R on the schedule of `mont`, each round
+// adding both rows, a*b[i] and c*d[i], to the two frames before its one
+// reduction row: a sum of two products for 2 x 128 + 136 multiply-adds,
+// where two products take 2 x 264. Bounds, for a, b, c < p and d <= p
+// (p - x for a canonical x, 0 included): the running sum stays under
+// (a + c + p) * 2^32 < 3p * 2^32 < 2^288, so the odd frame never carries
+// out; the REDC output is under (a*b + c*d) / R + p < 2p^2 / R + p < 2p,
+// so one conditional subtraction makes it canonical, and since it is
+// unique the words are those of f_add(f_mul(a, b), f_mul(c, d)).
+
+// one round of mont2 after the first, as mont_round
+template <int F>
+__device__ __forceinline__ void mont2_round(u32 x[8], u32 y[8], const u32 a[8],
+                                            u32 b, const u32 c[8], u32 d,
+                                            const u32 p[8]) {
+  shift_row_odd(x, y, a, b);
+  mad_row<0>(y, &x[7], a, b);
+  mad_row_odd(x, c, d);
+  mad_row<0>(y, &x[7], c, d);
+  redc_row<F>(y, x, p);
+}
+
+// r = (a*b + c*d) * R^-1 mod p, canonical; r may alias any operand
+template <int F>
+__device__ __forceinline__ void mont2(u32 r[8], const u32 a[8], const u32 b[8],
+                                      const u32 c[8], const u32 d[8]) {
+  u32 p[8], e[8], o[8];
+  cp8(p, K_P[F]);
+  mul_row<0>(e, a, b[0]);
+  mul_row<1>(o, a, b[0]);
+  mad_row_odd(o, c, d[0]);
+  mad_row<0>(e, &o[7], c, d[0]);
+  redc_row<F>(e, o, p);
+#pragma unroll
+  for (int i = 1; i < 8; i += 2) {
+    mont2_round<F>(e, o, a, b[i], c, d[i], p);
+    if (i + 1 < 8) mont2_round<F>(o, e, a, b[i + 1], c, d[i + 1], p);
+  }
+  merge_frames(r, e, o);
+  csub(r, K_P[F]);
 }
 
 // ---- canonical ops (values < p) -------------------------------------------

@@ -1,15 +1,17 @@
 """A Python-int model of the CUDA kernels' Montgomery product
-(rapidsnark_tpu_torch/csrc/field.cuh `mont`), instruction by instruction
-in the order the kernel issues them, held word for word against the plain
-products of rapidsnark_tpu_torch/ops/field.py (Fq and Fr) and against
-(a*b + m*p) / R computed with Python integers.
+(rapidsnark_tpu_torch/csrc/field.cuh `mont`) and of its reduction of a sum
+of two products (`mont2`), instruction by instruction in the order the
+kernel issues them, held word for word against the plain products of
+rapidsnark_tpu_torch/ops/field.py (Fq and Fr) and against
+(a*b + m*p) / R, (a*b + c*d + m*p) / R computed with Python integers.
 
 The model runs each PTX instruction on 32-bit words with one carry flag
 and asserts that no instruction the kernel issues without a carry out
 (`madc.hi.u32`, `addc.u32`) ever wraps: the frames' bound argument of
 field.cuh, checked on every input here. Inputs: seeded random canonical
 values, the edge values 0, 1, p - 1, and relaxed values up to 2p (the G1
-law feeds products in [0, 2p]). Tolerance: exact words."""
+law feeds products in [0, 2p]; `mont2` takes canonical values, its last
+operand up to p). Tolerance: exact words."""
 
 import numpy as np
 import pytest
@@ -56,6 +58,10 @@ def words(v):
 
 def value(w):
     return sum(x << (32 * i) for i, x in enumerate(w))
+
+
+def csub(s, k):
+    return s - k if s >= k else s
 
 
 def mul_row(a, b, odd):
@@ -107,20 +113,52 @@ def mont_round(x, y, a, b, p, n0):
     redc_row(y, x, p, n0)
 
 
+def merge_frames(e, o):
+    """r = e + (o >> 32): o the zero frame, e the odd one."""
+    c = Chain()
+    r = [c.add(e[j], o[j + 1], carry_in=j > 0) for j in range(7)]
+    r.append(c.add(e[7], 0, cc=False, carry_in=True))
+    return r
+
+
+def n0inv(mod):
+    return (-pow(mod, -1, 1 << 32)) % (1 << 32)
+
+
 def mont_model(av, bv, mod):
     """field.cuh `mont` on integers: (a*b + m*p) / R as 8 words."""
-    a, b, p = words(av), words(bv), words(mod)
-    n0 = (-pow(mod, -1, 1 << 32)) % (1 << 32)
+    a, b, p, n0 = words(av), words(bv), words(mod), n0inv(mod)
     e, o = mul_row(a, b[0], 0), mul_row(a, b[0], 1)
     redc_row(e, o, p, n0)
     for i in range(1, 8, 2):
         mont_round(e, o, a, b[i], p, n0)
         if i + 1 < 8:
             mont_round(o, e, a, b[i + 1], p, n0)
-    c = Chain()
-    r = [c.add(e[j], o[j + 1], carry_in=j > 0) for j in range(7)]
-    r.append(c.add(e[7], 0, cc=False, carry_in=True))
-    return r
+    return merge_frames(e, o)
+
+
+def mont2_round(x, y, a, b, c, d, p, n0):
+    shift_row_odd(x, y, a, b)
+    x[7] = mad_row(y, x[7], a, b, 0)
+    mad_row_odd(x, c, d)
+    x[7] = mad_row(y, x[7], c, d, 0)
+    redc_row(y, x, p, n0)
+
+
+def mont2_model(av, bv, cv, dv, mod):
+    """field.cuh `mont2` before its conditional subtraction:
+    (a*b + c*d + m*p) / R as 8 words."""
+    a, b, c, d = (words(v) for v in (av, bv, cv, dv))
+    p, n0 = words(mod), n0inv(mod)
+    e, o = mul_row(a, b[0], 0), mul_row(a, b[0], 1)
+    mad_row_odd(o, c, d[0])
+    o[7] = mad_row(e, o[7], c, d[0], 0)
+    redc_row(e, o, p, n0)
+    for i in range(1, 8, 2):
+        mont2_round(e, o, a, b[i], c, d[i], p, n0)
+        if i + 1 < 8:
+            mont2_round(o, e, a, b[i + 1], c, d[i + 1], p, n0)
+    return merge_frames(e, o)
 
 
 def f_mul_model(av, bv, mod):
@@ -174,6 +212,48 @@ def test_mont_schedule_matches_plain_product(field, kind):
         assert [f_mul_model(x, y, mod) for x, y in pairs] == want
 
 
+def mont2_inputs(kind, mod, seed):
+    """Quadruples (a, b, c, d): seeded random canonical values, or 0, 1
+    and p - 1 in every position (all four at p - 1 among them), and d = p,
+    the operand p - b1 that s_mul hands mont2 for a partner component
+    b1 = 0."""
+    if kind == "edge":
+        vals = [0, 1, mod - 1]
+        out = [(a, b, c, d) for a in vals for b in vals for c in vals
+               for d in vals]
+        return out + [(x, y, mod - 1, mod) for x in vals for y in vals]
+    rs = np.random.RandomState(seed)
+    w = rs.randint(0, 1 << 32, size=(48, 4, 9), dtype=np.uint64)
+    return [tuple(sum(int(v) << (32 * i) for i, v in enumerate(row)) % mod
+                  for row in quad) for quad in w]
+
+
+def plain_mul2(ops, quads):
+    """ops/field.py's canonical a*b + c*d, as 8 words each."""
+    def col(j):
+        return FF.unpack(torch.tensor(np.array(
+            [words(q[j]) for q in quads], dtype=np.uint32).view(np.int32)))
+    out = FF.pack(ops.add(ops.mul(col(0), col(1)), ops.mul(col(2), col(3))))
+    return [list(r) for r in out.numpy().view(np.uint32).astype(int)]
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+@pytest.mark.parametrize("kind", ["random", "edge"])
+def test_mont2_schedule_matches_plain_sum_of_products(field, kind):
+    mod, ops = FIELDS[field]
+    quads = mont2_inputs(kind, mod, seed=11 + (7 if field == "fr" else 0))
+    got = [mont2_model(*q, mod) for q in quads]
+    rinv = pow(R, -1, mod)
+    for (a, b, c, d), w in zip(quads, got):
+        s = a * b + c * d
+        m = (-s * pow(mod, -1, R)) % R
+        t = (s + m * mod) // R
+        assert value(w) == t and t < 2 * mod
+        assert csub(t, mod) == s * rinv % mod
+    canon = [words(csub(value(w), mod)) for w in got]
+    assert canon == plain_mul2(ops, quads)
+
+
 # ---------------------------------------------------------------------------
 # The adders' schedules (rapidsnark_tpu_torch/csrc/curve.cu), op for op on
 # Python integers with the product above, against the plain group laws:
@@ -194,8 +274,9 @@ def mont(a, b):
     return value(mont_model(a, b, P))
 
 
-def csub(s, k):
-    return s - k if s >= k else s
+def mont2(a, b, c, d):
+    """field.cuh `mont2`: canonical (a*b + c*d) R^-1."""
+    return csub(value(mont2_model(a, b, c, d, P)), P)
 
 
 def add_rx(a, b):
@@ -217,10 +298,6 @@ def f_add(a, b):
 def f_sub(a, b):
     d = (a - b) % R
     return (d + P) % R if a < b else d
-
-
-def f_mul(a, b):
-    return value(f_mul_model(a, b, P))
 
 
 def g1_add_rx(p, q):
@@ -265,13 +342,13 @@ def lin(fn, *vals):
 
 def s_mul(a, b):
     """s_mul: thread c gets the partner's components of a and b and
-    computes c = 0: a0b0 - a1b1, c = 1: a1b0 + a0b1."""
+    reduces, c = 0: a0b0 + a1(p - b1) (p for b1 = 0), c = 1: a1b0 + a0b1,
+    one mont2 a thread."""
     ao, bo = xchg(a), xchg(b)
     out = []
     for c in (0, 1):
-        u, v = (bo[c], b[c]) if c else (b[c], bo[c])
-        t0, t1 = f_mul(a[c], u), f_mul(ao[c], v)
-        out.append(f_add(t0, t1) if c else f_sub(t0, t1))
+        u, v = (bo[c], b[c]) if c else (b[c], P - bo[c])
+        out.append(mont2(a[c], u, ao[c], v))
     return out
 
 
@@ -301,10 +378,10 @@ def s_add(p, q):
 
 def s_mul_b3_twist(t):
     """b3 * t on the zkey's twist, b3 = (B0, B1) = 9/(9+i): thread c gets
-    the partner's component of t and holds both of the constant's."""
+    the partner's component of t and holds B0, and B1 (c = 1) or p - B1
+    (c = 0, K_B3_G2_NEG1)."""
     to, (b0, b1) = xchg(t), G2P.b3_mont
-    return [f_add(f_mul(t[1], b0), f_mul(to[1], b1)) if c
-            else f_sub(f_mul(t[0], b0), f_mul(to[0], b1)) for c in (0, 1)]
+    return [mont2(t[c], b0, to[c], b1 if c else P - b1) for c in (0, 1)]
 
 
 def s_add_mixed(p, x2, y2, b3=s_mul_b3):
@@ -423,3 +500,21 @@ def test_strict_mixed_schedule_matches_plain_add_mixed():
         out.append(flat(pt, True) if not any(b) else flat(
             s_add_mixed(pt, b[0:2], b[2:4], b3=s_mul_b3_twist), True))
     assert torch.equal(to_words(out), TFU.add_mixed_packed_plain(G2P, p, q))
+
+
+def test_b3_twist_constants_match_the_curve():
+    """field.cuh's K_B3_G2 (B0, B1) and K_B3_G2_NEG1 (p - B1), which the
+    strict law's product by b3 reads, against ops/curve.py's b3."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(TFU.__file__), os.pardir,
+                            "csrc", "field.cuh")).read()
+
+    def const(name):
+        body = re.search(name + r"(?:\[\d+\])+ = \{(.*?)\};", src, re.S)
+        return [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u",
+                                               body.group(1))]
+    b0, b1 = G2P.b3_mont
+    b3 = const("K_B3_G2")
+    assert [value(b3[:8]), value(b3[8:])] == [b0, b1]
+    assert value(const("K_B3_G2_NEG1")) == P - b1

@@ -152,6 +152,50 @@ def test_add_mixed_kernels_match_plain(curve, form, n):
     assert torch.equal(got, want)
 
 
+def _edge_fq2(shape, dev, shift=0):
+    """G2 coordinates (*shape, 8 words) whose Fq2 values are (p - 1, 0),
+    (0, p - 1) or (p - 1, p - 1), in turns that differ from lane to lane:
+    the largest component, and a partner component of 0, which the
+    two-thread product negates."""
+    pm1 = np.array([((P - 1) >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                   dtype=np.uint32)
+    pats = [(1, 0), (0, 1), (1, 1)]
+    w = np.zeros(tuple(shape) + (8,), dtype=np.uint32)
+    flat = w.reshape(-1, 2, 8)
+    for j in range(flat.shape[0]):
+        for c in (0, 1):
+            if pats[(j + j // 3 + shift) % 3][c]:
+                flat[j, c] = pm1
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "scan", "add_mixed"])
+def test_g2_kernels_on_edge_components_match_plain(op):
+    """The G2 adders (`add` and the scan on the iso-twist, the strict
+    `add_mixed_packed` on the zkey's twist) on coordinates of p - 1 and
+    0 components, 33 lanes; the scan over 4 columns with signs set."""
+    dev = _dev()
+    n, K = 33, 4
+    p = _edge_fq2((n, 6), dev)
+    if op == "add":
+        q = _edge_fq2((n, 6), dev, shift=1)
+        got = TFU.add(G2P_ISO, p, q)
+        want = TFU.add_plain(G2P_ISO, p, q)
+    elif op == "scan":
+        cols = _edge_fq2((K, n, 4), dev)
+        sign = torch.from_numpy(np.arange(K * n).reshape(K, n) % 2
+                                ).to(torch.int32).to(dev)
+        got = TFU.scan_cols_packed(G2P_ISO, p, cols, sign)
+        want = TFU.scan_cols_plain(G2P_ISO, p, cols, sign)
+    else:
+        q = _edge_fq2((n, 4), dev, shift=2)
+        got = TFU.add_mixed_packed(G2P, p, q)
+        want = TFU.add_mixed_packed_plain(G2P, p, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dif", [False, True])
 @pytest.mark.parametrize("power,batch", [(7, 1), (7, 3), (12, 2), (14, 3)])
