@@ -43,7 +43,11 @@ msms.gather, msms.scan (the chunk scans and their totals' prefix) and
 msms.buckets (the boundary lookups, the telescoped difference, the
 halving tree and the add into the running totals). While spans are on
 they add into the calling Prover's last_phases; called with no Prover
-they only mark the profiler's trace.
+they only mark the profiler's trace. While spans are on, each window
+group also counts into last_phases the (point, window) entries it sorts
+and scans (`count.msms.entries`, from the shapes) and those whose digit
+is nonzero (`count.msms.live`, from the sort's bucket boundaries on the
+card, read with the spans' events).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ import torch
 
 from .. import device as D
 from ..ref.field import P as _P
-from ..utils.logger import phase
+from ..utils.logger import count, counting, phase
 from . import field as FF
 from . import fused
 from . import glv as GLV
@@ -709,6 +713,10 @@ def _window_group(curve, pts, digits, n: int, c: int):
     with phase("msms.sort", device=dev):
         keys, perm, sign, cum = digit_sort(digits, c)
     del keys
+    if counting():               # cum[..., 0]: the keys of digit 0
+        count("count.msms.entries", digits.numel())
+        count("count.msms.live", digits.numel() - cum[..., 0].sum(
+            dtype=torch.int64))
     with phase("msms.gather", device=dev):
         cols = gather_cols(pts, perm)             # (C, G, *b, nb, A, 8)
     del perm

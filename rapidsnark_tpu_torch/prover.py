@@ -59,7 +59,7 @@ from .parallel.pntt import DNTTPlan, dntt
 from .ref.field import FQ_CTX, R_FR, fr_w
 from .ref.groth16 import Proof, sample_rs
 from .utils.hostcurve import G1H, G2H
-from .utils.logger import collect, phase
+from .utils.logger import TRACE, collect, get_logger, phase
 
 
 def _log2(n: int) -> int:
@@ -273,6 +273,8 @@ class Prover:
         self.coef_slots = K
         self.coef_s, self.coef_val, left, lrank = FRONT.slot_tables(
             coef_s, coef_val, seg, 2 * n, K)
+        get_logger().log(TRACE, "coef_binning: K = %d slots a row, %d of "
+                         "%d records spilled", K, left.numel(), ncoefs)
         cap = 1 << 15
         self.spill = self.left_order = self.left_seg = self.acc2_seg = None
         if left.numel():
@@ -335,8 +337,9 @@ class Prover:
         spill = None
         if "left_s" in tables:
             spill = FRONT.Spill(*(tables[k] for k in FRONT.SPILL_TABLES))
-        ab = FRONT.fr_slot_acc(witness, tables["coef_s"], tables["coef_val"],
-                               spill).reshape(2, n, 8)
+        with phase("front.acc", device=self.device):
+            ab = FRONT.fr_slot_acc(witness, tables["coef_s"],
+                                   tables["coef_val"], spill).reshape(2, n, 8)
         return ab, FRONT.fr_pointwise("mul", ab[0], ab[1])
 
     def _cosets(self, ab, cvec, tables):
@@ -438,10 +441,14 @@ class Prover:
         into that directory (last_trace names the file). While spans are
         on (a profiler records, or RSTPU_LOG_LEVEL=trace; utils/logger)
         last_phases also holds the spans inside front and msms, seconds
-        of the card on a card: front.upload (the witness's copy) and
+        of the card on a card: front.upload (the witness's copy),
+        front.acc (fr_slot_acc: the slots and any spill) and
         msms.prep / sort / gather / scan / buckets, each summed over the
         MSMs' slices and window groups; each is also a profiler range
-        "rstpu.<key>"."""
+        "rstpu.<key>". It then also holds two counts over the MSMs'
+        window groups: count.msms.entries, the (point, window) entries
+        sorted and scanned, and count.msms.live, those of a nonzero
+        digit."""
         if r is None:
             r = sample_rs()
         if s is None:

@@ -18,7 +18,8 @@ Chrome trace, and a span that names a CUDA device times the card's
 stream by a pair of CUDA events instead of the host's clock. `collect`
 gives the spans of a block that name no sink one to add into (the
 Prover's last_phases for one prove) and reads their events once the
-caller has synchronised.
+caller has synchronised. `count` adds into the same sink while spans are
+on: a host number at once, a card tensor when the events are read.
 """
 
 from __future__ import annotations
@@ -75,15 +76,21 @@ class Spans:
     def __init__(self, sink: dict):
         self.sink = sink
         self.pending: list = []
+        self.counts: dict = {}     # name -> card tensors not yet read
 
     def read_card(self) -> None:
-        """Add each pending event pair's card seconds into its sink. Call
-        after a synchronisation of the stream the events were recorded on:
-        reading an event the card has not reached raises, and waiting for
-        it here would add a synchronisation."""
+        """Add each pending event pair's card seconds, and each pending
+        count, into its sink. Call after a synchronisation of the stream
+        the events were recorded on: reading an event the card has not
+        reached raises, and waiting for it here would add a
+        synchronisation."""
         for sink, name, start, end in self.pending:
             sink[name] = sink.get(name, 0.0) + start.elapsed_time(end) / 1e3
         self.pending.clear()
+        for name, vals in self.counts.items():
+            self.sink[name] = (self.sink.get(name, 0)
+                               + int(torch.stack(vals).sum()))
+        self.counts.clear()
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("rstpu_spans",
@@ -102,6 +109,34 @@ def collect(sink: dict):
         _ACTIVE.reset(token)
 
 
+def _spans_on():
+    """The enclosing `collect` block's Spans while spans are on, else
+    None."""
+    if torch.autograd.profiler._is_profiler_enabled or \
+            get_logger().isEnabledFor(TRACE):
+        return _ACTIVE.get()
+    return None
+
+
+def counting() -> bool:
+    """Whether a `count` now adds anywhere: the caller skips the work of
+    a count's value otherwise."""
+    return _spans_on() is not None
+
+
+def count(name: str, value) -> None:
+    """Add `value` into the enclosing `collect` block's sink under `name`
+    while spans are on, and nowhere otherwise: an int at once, a
+    one-element tensor (on the card: no synchronisation) at read_card."""
+    spans = _spans_on()
+    if spans is None:
+        return
+    if isinstance(value, torch.Tensor):
+        spans.counts.setdefault(name, []).append(value.reshape(()))
+    else:
+        spans.sink[name] = spans.sink.get(name, 0) + value
+
+
 @contextlib.contextmanager
 def phase(name: str, sink: dict | None = None, device=None):
     """Stage-boundary timeline marker (mirrors groth16.cpp LOG_TRACE) and
@@ -114,8 +149,7 @@ def phase(name: str, sink: dict | None = None, device=None):
     by Spans.read_card; else by the host's clock."""
     log = get_logger()
     profiling = torch.autograd.profiler._is_profiler_enabled
-    spans = (_ACTIVE.get() if profiling or log.isEnabledFor(TRACE)
-             else None)
+    spans = _spans_on()
     if sink is None and spans is not None:
         sink = spans.sink
     card = (spans is not None and device is not None
