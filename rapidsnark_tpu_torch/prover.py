@@ -58,6 +58,7 @@ from .parallel import multihost as MH, pmsm as PM
 from .parallel.pntt import DNTTPlan, dntt
 from .ref.field import FQ_CTX, R_FR, fr_w
 from .ref.groth16 import Proof, sample_rs
+from .utils import staging as STAGE
 from .utils.hostcurve import G1H, G2H
 from .utils.logger import TRACE, collect, get_logger, phase
 
@@ -212,6 +213,7 @@ class Prover:
         self.last_phases: Dict[str, float] = {}
         self.last_trace: Optional[str] = None
         self._traces = 0
+        self._staging: Optional[STAGE.Ring] = None
         self.released = False
 
     def _ntt_tables(self) -> None:
@@ -417,11 +419,15 @@ class Prover:
         peaks[name] = torch.cuda.max_memory_allocated(self.device)
 
     def release(self) -> None:
-        """Drop every device table; the instance cannot prove afterwards."""
+        """Drop every device table and give the witness's pinned staging
+        buffers back; the instance cannot prove afterwards."""
         self.pts_g1 = self.pts_g2 = None
         self.coef_s = self.coef_val = None
         self.spill = self.left_order = self.left_seg = self.acc2_seg = None
         self.ntt_arrays, self.dntt_arrays = {}, {}
+        if self._staging is not None:
+            self._staging.release()
+            self._staging = None
         self.released = True
 
     def _sync(self):
@@ -441,14 +447,15 @@ class Prover:
         into that directory (last_trace names the file). While spans are
         on (a profiler records, or RSTPU_LOG_LEVEL=trace; utils/logger)
         last_phases also holds the spans inside front and msms, seconds
-        of the card on a card: front.upload (the witness's copy),
-        front.acc (fr_slot_acc: the slots and any spill) and
-        msms.prep / sort / gather / scan / buckets, each summed over the
-        MSMs' slices and window groups; each is also a profiler range
-        "rstpu.<key>". It then also holds two counts over the MSMs'
-        window groups: count.msms.entries, the (point, window) entries
-        sorted and scanned, and count.msms.live, those of a nonzero
-        digit."""
+        of the card on a card: front.upload (the witness's copy, on a
+        card through pinned staging chunks), front.acc (fr_slot_acc: the
+        slots and any spill) and msms.prep / sort / gather / scan /
+        buckets, each summed over the MSMs' slices and window groups;
+        each is also a profiler range "rstpu.<key>". It then also holds
+        two counts over the MSMs' window groups: count.msms.entries, the
+        (point, window) entries sorted and scanned, and count.msms.live,
+        those of a nonzero digit; and on a card count.front.staged, the
+        witness's chunks staged (utils/staging.chunk_plan)."""
         if r is None:
             r = sample_rs()
         if s is None:
@@ -491,6 +498,20 @@ class Prover:
             yield
         self.last_trace = path
 
+    def _upload(self, wit: np.ndarray) -> torch.Tensor:
+        """The witness words as an int32 (n_vars, 8) tensor on the device:
+        on a card through the Prover's ring of pinned staging buffers
+        (utils/staging), taken at the first prove and held until
+        release()."""
+        if self.device.type != "cuda":
+            witness = _i32(wit)
+            with phase("front.upload", device=self.device):
+                return witness.to(self.device)
+        if self._staging is None:
+            self._staging = STAGE.Ring()
+        with phase("front.upload", device=self.device):
+            return self._staging.upload(wit, self.device)
+
     def _prove(self, witness_words, r: int, s: int, peaks):
         rs = r * s % R_FR
         t0 = time.perf_counter()
@@ -503,9 +524,7 @@ class Prover:
         with collect(self.last_phases) as spans:
             with phase("front", self.last_phases), \
                     self._peak("front", peaks):
-                witness = _i32(wit)
-                with phase("front.upload", device=self.device):
-                    witness = witness.to(self.device)
+                witness = self._upload(wit)
                 rows = self.front(witness, tables)
                 self._sync()
             with phase("msms", self.last_phases):

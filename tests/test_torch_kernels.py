@@ -742,3 +742,48 @@ def test_sharded_msm_and_dntt_on_one_rank_nccl(tmp_path):
         assert mesh.stats["all_gather_calls"] == 2
     finally:
         MH.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["writeable", "mapped"])
+def test_witness_ring_upload_equals_source(source, tmp_path):
+    """Two witnesses of ~2.5 chunks each through one ring of pinned slots
+    (utils/staging), back to back with no synchronisation between: a
+    slot refilled before its last copy drained would change the first.
+    Each equals its source word for word, from a writeable array and
+    from a read-only mapped file (as a mapped .wtns payload is), and
+    count.front.staged is the plan's chunk count a witness."""
+    dev = _dev()
+    from rapidsnark_tpu_torch.utils import staging as ST
+    from rapidsnark_tpu_torch.utils.logger import TRACE, collect, get_logger
+    rows = 5 * ST.CHUNK_BYTES // (2 * ST.ROW_BYTES) + 3
+    rng = np.random.default_rng(41)
+    words = []
+    for i in range(2):
+        w = rng.integers(0, 1 << 32, size=(rows, 8), dtype=np.uint32)
+        if source == "mapped":
+            path = tmp_path / f"w{i}.bin"
+            w.tofile(path)
+            w = np.memmap(path, dtype=np.uint32, mode="r", shape=(rows, 8))
+            assert not w.flags.writeable
+        words.append(w)
+    nchunks = len(ST.chunk_plan(rows * ST.ROW_BYTES))
+    assert nchunks == 3
+    log = get_logger()
+    level = log.level
+    log.setLevel(TRACE)                       # spans, and counts, on
+    ring, got, counted = ST.Ring(), [], []
+    try:
+        for w in words:
+            sink = {}
+            with collect(sink):
+                got.append(ring.upload(w, dev))
+            counted.append(sink.get("count.front.staged"))
+    finally:
+        log.setLevel(level)
+    torch.cuda.synchronize()
+    assert counted == [nchunks, nchunks]
+    for g, w in zip(got, words):
+        assert g.dtype == torch.int32 and tuple(g.shape) == (rows, 8)
+        assert np.array_equal(g.cpu().numpy().view(np.uint32), w)
+    ring.release()
