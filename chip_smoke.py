@@ -27,10 +27,8 @@ in order; any failure exits non-zero:
      shape the paths below give it. The MSM geometry of each prove
      (2^20-2^24, the wide 2^22 circuit, a rank of 2^22 over D = 2 and 4
      sharing the card) is config.msm_plan's for its axis and this card's
-     memory, and the 2^22, 2^23 and 2^24 proves' also the JAX package's
-     (segments 2^20 / 2^20 / 2^19, c = 13, G = 5); the run prints each
-     and a prove fails unless it ran
-     its own: a slice's scans, every width `add` is launched at with its
+     memory; the run prints each and a prove fails unless it ran its
+     own: a slice's scans, every width `add` is launched at with its
      launches per slice (a whole axis is one slice), every fused pass
      over 3 x 2^21 and 3 x 2^22 and over 1 x 2^23 and 1 x 2^24: top
      passes of 1, 2, 3 and 4 bits), the front and preparation kernels at
@@ -138,12 +136,9 @@ in order; any failure exits non-zero:
      bench_fixtures/sqchain4194304.{zkey,wtns} on the card
      (add_mixed_packed and add_mixed must have launched), prove it
      through the CLI entry point (cold), then on the loaded Prover
-     (warm, fixed (r, s)), and against the JAX package's geometry
-     (segment 2^20, c = 13, G = 5, as Prover arguments: warm proves in
-     turns, each side's stage peaks and a profiled prove, a
-     `geometry_2^22` line; so too the 2^23 sqchain below); the proof must
-     pairing-verify, scan_cols_packed must have launched once per slice
-     per window group per MSM call, and add at the widths phase 2 timed;
+     (warm, fixed (r, s)); the proof must pairing-verify,
+     scan_cols_packed must have launched once per slice per window
+     group per MSM call, and add at the widths phase 2 timed;
      then, sharded: the same fixture proved by D = 2 and D = 4 ranks as
      processes of this script sharing the card (backend gloo, every
      exchange through host memory: no scaling number), each rank's proof
@@ -157,14 +152,7 @@ in order; any failure exits non-zero:
      weighed) and the 2^23 sqchain (sequential NTTs), each generated,
      proved cold and
      warm as above and pairing-verified, the wide fixture deleted after
-     its proves; then the bench harness (python -m
-     rapidsnark_tpu_torch.bench, RSTPU_BENCH_MAX_LOGN=23,
-     RSTPU_BENCH_REPS=2, a 300 s budget) on this run's fixtures in a
-     subprocess: every line must parse, the 2^20 and 2^23 rungs and the
-     three kernel metrics must be there with no _FAILED_ line, every
-     prove line must carry a verified proof and the card, every
-     roofline_pct must be at most 100, and the last line must repeat the
-     largest prove's; its lines are printed;
+     its proves;
   9. generate bench_fixtures/sqchain16777216.{zkey,wtns} on the card (the
      smaller fixtures are deleted first; the machine's memory and disk
      and this process's resident memory are printed), prove it through
@@ -194,14 +182,8 @@ in order; any failure exits non-zero:
      at K = 1, and its front's peak may exceed the K = 1
      front's by no more than the larger coefficient tables plus 1 GiB;
      the largest stage peak of the warm proves at K = 1 and K = 3 must
-     stay within PEAK_LIMIT (40 GB); a `prove_2^24` JSON line. Between
-     the two, a Prover with the JAX package's geometry (segment 2^19,
-     c = 13, G = 5, as arguments) on the same fixture: warm proves in
-     turns with the plan's (plan, JAX, JAX, plan), its kernel shapes
-     phase 2's, its stage peaks alone on the card and a profiled prove;
-     every proof the plan's bytes; a `geometry_2^24` JSON line with both
-     geometries' phases, peaks, scan and add device ms and add launches.
-     Then, sharded (the Provers released): the
+     stay within PEAK_LIMIT (40 GB); a `prove_2^24` JSON line. Then,
+     sharded (the Provers released): the
      2^24 fixture on a one-rank NCCL mesh in this process (four-step NTTs
      at N1 = N2 = 2^12, the sharded MSMs) with the warm prove's (r, s),
      byte-equal to it, kernel shapes held and no plain field op on the
@@ -254,11 +236,6 @@ LOGN_WHOLE = 21     # a 1-bit top NTT pass
 LOGN_SEG = 22       # the stacked NTT's largest; the sharded proves' size
 LOGN_SEQ = 23       # sequential NTTs with a 3-bit top pass
 LOGN_MAX = 24       # the production size, sliced, sequential NTTs
-# the JAX package's MSM geometry (segment, c, G), a TPU v5e's, by log2 of
-# the domain: the warm 2^22, 2^23 and 2^24 proves run under it too,
-# against the plan's
-JAX_GEOS = {LOGN_SEG: (1 << 20, 13, 5), LOGN_SEQ: (1 << 20, 13, 5),
-            LOGN_MAX: (1 << 19, 13, 5)}
 # the largest stage peak the 2^24 prove may reach under the plan (bytes)
 PEAK_LIMIT = 40 * 10 ** 9
 # the wide 2^22 circuit's extra wires: 2^22 + 2^20 - 2^16 points, which
@@ -712,20 +689,19 @@ def main() -> int:
             failures.append(f"{name}[{key}] disagrees (max err {e})")
 
     # the MSM geometry of every prove this run makes: config.msm_plan's
-    # for the rank's axis and the ranks sharing this card, and for the
-    # 2^24 comparison the JAX package's (Prover arguments). Phase 2 holds
+    # for the rank's axis and the ranks sharing this card. Phase 2 holds
     # every scan, add, glv_digits and fq_scale case at each one's shapes;
     # a prove fails unless it ran its entry's geometry.
     card_mem = torch.cuda.get_device_properties(0).total_memory
 
-    def plan_geo(npts, ranks=1, plan=None):
+    def plan_geo(npts, ranks=1):
         """The MSM of a rank's axis of npts points: segment (0: the whole
         axis), c, window group G, window groups, the padded nmax, the
         entries a slice (width) and the slices; a slice's scans have
         G x rows x width / 256 lanes; add's widths per slice
         (_window_group on both curves once per window group, then, when
         sliced, one point per window into the running totals)."""
-        s, cc, g0 = plan or config.msm_plan(npts, 4, ranks, card_mem)
+        s, cc, g0 = config.msm_plan(npts, 4, ranks, card_mem)
         nw = -(-GLV_BITS // cc)
         gg = MSM.group_size(nw, g0)
         nmax = PM.pad_len_sharded(npts, 1, s)
@@ -747,8 +723,6 @@ def main() -> int:
     geo = {f"2^{lg}": plan_geo(1 << lg) for lg in
            (LOGN_BIG, LOGN_WHOLE, LOGN_SEG, LOGN_SEQ, LOGN_MAX)}
     geo["wide"] = plan_geo((1 << LOGN_SEG) + WIDE_EXTRA)
-    for lg, jg in JAX_GEOS.items():
-        geo[f"2^{lg} JAX"] = plan_geo(1 << lg, plan=jg)
     for logn, nd in SHARDED:
         if nd > 1:
             geo[f"2^{logn} D={nd}"] = plan_geo((1 << logn) // nd, nd)
@@ -2301,74 +2275,6 @@ def main() -> int:
                                f"{dict(seen_['pointwise'])}; phase 2 held "
                                f"{sorted(pointwise_held)}")
 
-    def kernel_ms(prof):
-        """The scans' and adds' device ms in a profiled prove's MSMs."""
-        ms = prof.get("msms", {}).get("port_kernels_ms", {})
-        return {"scans": sum(v for k, v in ms.items()
-                             if k.startswith("k_scan")),
-                "add": sum(v for k, v in ms.items()
-                           if k in ("k_add_g1", "k_add_g2"))}
-
-    def compare_jax(prover, zpath, wpath, lg, warm, peaks, want, adds,
-                    profile=None):
-        """The JAX package's MSM geometry JAX_GEOS[lg] (Prover arguments)
-        against the plan's loaded `prover` (its warm phases, stage peaks,
-        warm proof `want`, add launches a prove and, when given, profile)
-        on the same fixture: the JAX Prover's kernel shapes phase 2's,
-        warm proves in turns (plan, JAX, JAX, plan) with both loaded, the
-        plan's Prover released, the JAX Prover's stage peaks alone on the
-        card, a profiled prove of each; every proof `want`'s bytes,
-        pairing-verified. Logs and returns both sides."""
-        jg = JAX_GEOS[lg]
-        log(f"  2^{lg} under the JAX package's MSM geometry {jg} against "
-            f"the plan's {tuple(prover.plan)}")
-        if profile is None:
-            profile = profiled_prove(prover, zpath, wpath, want)
-        zk = read_zkey(zpath)
-        with no_plain_on_card(f"the 2^{lg} JAX-geometry Prover"):
-            old = Prover(zk, window_bits=jg[1], window_group=jg[2],
-                         segment=jg[0], device="cuda")
-            zk.close()
-            del zk
-            turns, proofs = [], []
-            for i, who in enumerate(("plan", "jax", "jax", "plan")):
-                with shape_log() as now:
-                    ph, _ = warm_prove(prover if who == "plan" else old,
-                                       zpath, wpath, f"{lg}_turn_{who}",
-                                       rs=(r_fix, s_fix), proof_out=proofs)
-                if i == 1:
-                    seen.clear()
-                    seen.update(now)
-                    jax_counts = dict(D.counts)
-                turns.append((who, ph))
-            check_geo(old, f"2^{lg} JAX", jax_counts, cold=False)
-            prover.release()
-            torch.cuda.empty_cache()
-            jax_peaks = {}
-            jax_warm, _ = warm_prove(old, zpath, wpath, f"{lg}_jax_warm",
-                                     peaks=jax_peaks, rs=(r_fix, s_fix),
-                                     proof_out=proofs)
-            jax_profile = profiled_prove(old, zpath, wpath, want)
-        if any((q.a, q.b, q.c) != (want.a, want.b, want.c) for q in proofs):
-            raise RuntimeError(f"a 2^{lg} proof under the JAX geometry or in "
-                               "the turns differs from the plan's")
-        res = {
-            "plan": {"geometry": list(prover.plan), "warm_phases": warm,
-                     "peaks": peaks,
-                     "turns": [ph for w, ph in turns if w == "plan"],
-                     "device_ms": kernel_ms(profile), "add_launches": adds},
-            "jax": {"geometry": list(jg), "warm_phases": jax_warm,
-                    "peaks": jax_peaks,
-                    "turns": [ph for w, ph in turns if w == "jax"],
-                    "device_ms": kernel_ms(jax_profile),
-                    "add_launches": jax_counts["add"]},
-            "proofs_equal": True, "card": card}
-        log(json.dumps({f"geometry_2^{lg}": res}))
-        old.release()
-        del old
-        torch.cuda.empty_cache()
-        return res
-
     def sharded_ranks(nd, backend, zpath, wpath, tag, limit=900.0):
         """nd processes of this script (--rank) proving zpath as the ranks
         of one job over `backend`, (r_fix, s_fix); their JSON lines in
@@ -2702,15 +2608,14 @@ def main() -> int:
         "warm_2^20": req_warm, "sqchain64": req_small, "card": card}}))
 
     # ---------------------------------------------------------- phase 8 --
-    def prove_size(logn, tag, gk, extra=0, proof_out=None, compare=False):
+    def prove_size(logn, tag, gk, extra=0, proof_out=None):
         """Generate the 2^logn sqchain on the card (with `extra` wires,
         the wide variant), prove it through the CLI entry point (cold)
         and on the loaded Prover (warm, fixed (r, s), the device peak of
         each stage; the proof appended to `proof_out` when given), each
         proof pairing-verified and the prove's geometry and kernel shapes
-        geo[gk]'s, as phase 2 held them; with `compare`, against the JAX
-        package's geometry too (compare_jax). Returns its JSON entry and
-        the zkey and wtns paths."""
+        geo[gk]'s, as phase 2 held them. Returns its JSON entry and the
+        zkey and wtns paths."""
         D.reset_counts()
         parts = {}
         t0 = time.perf_counter()
@@ -2748,9 +2653,6 @@ def main() -> int:
                "window_groups": groups, "ntt_sequential": prover.ntt_seq,
                "launches": counts, "generator_launches": gcounts,
                "card": card}
-        if compare:
-            out["geometry"] = compare_jax(prover, zp, wp, logn, warm, peaks,
-                                          proofs[0], counts["add"])
         prover.release()
         torch.cuda.empty_cache()
         return out, zp, wp
@@ -2763,7 +2665,7 @@ def main() -> int:
     log(f"phase8: generate sqchain{1 << LOGN_SEG} on the card")
     seg_proof = []
     seg_out, zpath, wpath = prove_size(LOGN_SEG, "seg", f"2^{LOGN_SEG}",
-                                       proof_out=seg_proof, compare=True)
+                                       proof_out=seg_proof)
     gen_counts, seg_counts = seg_out["generator_launches"], seg_out["launches"]
     # the kernels' share of the segmented MSMs, from this run's times at
     # the slice's shapes: one G1 and one G2 scan per slice per group
@@ -2834,60 +2736,8 @@ def main() -> int:
     log(json.dumps({f"prove_2^{LOGN_SEG}_wide": wide_out}))
     log(f"phase8: generate sqchain{1 << LOGN_SEQ} on the card (the plan's "
         "slices, sequential NTTs with a 3-bit top pass)")
-    seq_out, _, _ = prove_size(LOGN_SEQ, "seq", f"2^{LOGN_SEQ}",
-                               compare=True)
+    seq_out, _, _ = prove_size(LOGN_SEQ, "seq", f"2^{LOGN_SEQ}")
     log(json.dumps({f"prove_2^{LOGN_SEQ}": seq_out}))
-
-    # ------------------------------------------------ phase 8, harness --
-    log(f"phase8 harness: python -m rapidsnark_tpu_torch.bench on this "
-        f"run's fixtures (2^{LOGN_BIG}-2^{LOGN_SEQ})")
-    torch.cuda.empty_cache()
-    bench_env = {**os.environ, "RSTPU_BENCH_MAX_LOGN": str(LOGN_SEQ),
-                 "RSTPU_BENCH_REPS": "2", "RSTPU_BENCH_BUDGET_S": "300"}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "rapidsnark_tpu_torch.bench"],
-                         cwd=HERE, env=bench_env, capture_output=True,
-                         text=True, timeout=900)
-    bench_s = time.perf_counter() - t0
-    for ext, text in (("out", res.stdout), ("err", res.stderr)):
-        with open(os.path.join(outd, f"bench.{ext}"), "w") as f:
-            f.write(text)
-    blines = [json.loads(x) for x in res.stdout.splitlines() if x.strip()]
-    for x in blines:
-        log("  bench:", json.dumps(x))
-    if res.returncode or not blines:
-        raise RuntimeError(f"the harness exited {res.returncode}: "
-                           f"{res.stderr[-3000:]}")
-    bad = [x["metric"] for x in blines
-           if "FAILED" in x["metric"] or "CRASHED" in x["metric"]]
-    proves = {int(x["metric"].rsplit("^", 1)[1]): x for x in blines[:-1]
-              if x["metric"].startswith("groth16_prove_latency_2^")}
-    kern = {x["metric"].split("_per_sec")[0]: x for x in blines
-            if "_per_sec_2^" in x["metric"]}
-    if bad or not {LOGN_BIG, LOGN_SEQ} <= set(proves) or \
-            set(kern) != {"g1_msm_points", "g2_msm_points",
-                          "ntt_butterflies"}:
-        raise RuntimeError(f"the harness failed {bad}, proved "
-                           f"{sorted(proves)}, measured {sorted(kern)}")
-    if blines[-1] != proves[max(proves)]:
-        raise RuntimeError("the harness's last line is not its largest "
-                           "prove's")
-    for ln_, x in proves.items():
-        ex = x["extra"]
-        if ex.get("verified") is not True or \
-                ex["device"].get("platform") != "gpu" or \
-                not ex["device"].get("power_limit"):
-            raise RuntimeError(f"the harness's 2^{ln_} line lacks a "
-                               f"verified proof or the card: {ex}")
-    for name, x in kern.items():
-        if not 0 < x["extra"]["roofline_pct"] <= 100:
-            raise RuntimeError(f"{name}: roofline_pct "
-                               f"{x['extra']['roofline_pct']}")
-    harness = {"wall_s": bench_s, "proves": sorted(proves),
-               "skipped": [x["metric"] for x in blines
-                           if "SKIPPED" in x["metric"]],
-               "lines": len(blines)}
-    log(json.dumps({"harness": harness, "card": card}))
 
     # ---------------------------------------------------------- phase 9 --
     name = f"sqchain{1 << LOGN_MAX}"
@@ -2990,9 +2840,7 @@ def main() -> int:
         "ntt_sequential": prover.ntt_seq, "host": host,
         "profile_warm": profile, "card": card}
 
-    out["geometry"] = compare_jax(prover, zpath, wpath, LOGN_MAX, warm,
-                                  peaks, k1_proof[0], max_counts["add"],
-                                  profile)
+    prover.release()
     del prover
     torch.cuda.empty_cache()
 

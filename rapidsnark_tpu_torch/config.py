@@ -25,6 +25,9 @@ package), and the MSM's memory plan on the H100:
                          (default 0: one process, one card)
     RSTPU_PROFILE        a directory: Prover.prove writes a torch.profiler
                          trace of each prove there
+    RSTPU_LOG_LEVEL      error|info|trace|debug (utils/logger; trace also
+                         turns the spans inside a prove on), and
+    RSTPU_LOG_FILE       the log's file (default: the console)
 
 msm_plan sets the MSM's geometry (slice, c, window group) from the card's
 memory and from MSM_COST, times measured on an H100 80GB HBM3
@@ -34,10 +37,7 @@ c = 16 from 2^18 points on, and (segment, G): whole axes with G = 8 at
 points and with G = 4 at 2^24; smaller cards and ranks sharing a card
 get narrower slices.
 The Prover takes its arguments first, then the three variables above,
-then the plan. msm_segment, window_group, ntt_sequential and
-ops/msm.best_window_bits keep the JAX package's geometry, tuned on a TPU
-v5e: the tests hold them at parity with it, and chip_smoke.py runs it
-beside the plan.
+then the plan.
 """
 
 from __future__ import annotations
@@ -55,25 +55,6 @@ def int_env(name: str) -> Optional[int]:
 
 def window_bits() -> Optional[int]:
     return int_env("RSTPU_WINDOW_BITS")
-
-
-def window_group() -> int:
-    """RSTPU_WINDOW_GROUP, else the JAX package's window group (5, the
-    TPU's measured optimum)."""
-    v = int_env("RSTPU_WINDOW_GROUP")
-    return 5 if v is None else v
-
-
-def msm_segment(n: int) -> int:
-    """RSTPU_MSM_SEGMENT, else the JAX package's slice rule, a TPU v5e
-    out-of-memory workaround: whole-axis scans up to 2^21 points, 2^20
-    entries a slice above that, 2^19 from 2^24."""
-    v = int_env("RSTPU_MSM_SEGMENT")
-    if v is not None:
-        return v
-    if n >= (1 << 24):
-        return 1 << 19
-    return (1 << 20) if n > (1 << 21) else 0
 
 
 def ntt_fuse(n: int) -> bool:

@@ -489,23 +489,6 @@ def fq_scale(t: torch.Tensor, spec, ext: int = 1) -> torch.Tensor:
     return out
 
 
-def best_window_bits(n: int, segment: int = 0) -> int:
-    """The JAX package's cost-model choice of c (13 at 2^17+ points on the
-    unsegmented GLV path), fitted on a TPU v5e; the port's Prover takes c
-    from config.msm_plan."""
-    if not segment and n >= (1 << 17):
-        return 13
-    bits, neff = GLV.GLV_BITS, 2 * n
-    nseg = max(neff // segment, 1) if segment else 1
-    best, best_cost = 1, None
-    for c in range(1, 17):
-        nwin = -(-bits // c)
-        cost = nwin * (neff + 15 * nseg * (1 << (c - 1)))
-        if best_cost is None or cost < best_cost:
-            best, best_cost = c, cost
-    return best
-
-
 def group_size(nwin: int, window_group: int) -> int:
     """The windows msm scans at once: window_group, cut to the largest
     divisor of the window count nwin that is no larger."""

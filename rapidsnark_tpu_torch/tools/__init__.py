@@ -21,7 +21,7 @@ def scan_add_imads(curve: str) -> int:
     """The multiply-adds of one mixed add of the MSM's prefix scan on
     "g1" (14 Montgomery products, the relaxed law) or "g2" (33, the
     iso-twist's law, an Fq2 product counted as three): the count behind
-    scan_cols_packed's bound and the MSM metrics' roofline (bench.py)."""
+    scan_cols_packed's bound in chip_smoke.py."""
     return {"g1": 14, "g2": 33}[curve] * MONT_IMADS
 
 

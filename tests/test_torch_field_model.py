@@ -482,6 +482,31 @@ def test_scan_schedule_matches_plain_scan(g2):
     assert torch.equal(got, want)
 
 
+def test_scan_add_imads_counts_the_scan_schedules(monkeypatch):
+    """tools.scan_add_imads, the mixed add's multiply-adds behind
+    chip_smoke.py's scan bound: the products the scans' steps above make
+    (k_scan_g1's 14 Montgomery products; k_scan_g2's 11 Fq2 products,
+    counted as 33), at MONT_IMADS (264) each."""
+    from rapidsnark_tpu_torch import tools
+    calls = {"mont": 0, "s_mul": 0}
+    for name in calls:
+        real = globals()[name]
+
+        def counted(*a, _real=real, _name=name):
+            calls[_name] += 1
+            return _real(*a)
+        monkeypatch.setitem(globals(), name, counted)
+    rs = np.random.RandomState(38)
+    v = [int(rs.randint(1, 1 << 30)) * 7919 % P for _ in range(12)]
+    g1_add_mixed_rx(v[0:3], v[3], v[4])
+    s_add_mixed([v[0:2], v[2:4], v[4:6]], v[6:8], v[8:10])
+    assert (calls["mont"], calls["s_mul"]) == (14, 11)
+    assert tools.MONT_IMADS == 264
+    assert tools.scan_add_imads("g1") == calls["mont"] * tools.MONT_IMADS
+    assert tools.scan_add_imads("g2") == \
+        3 * calls["s_mul"] * tools.MONT_IMADS
+
+
 def test_strict_mixed_schedule_matches_plain_add_mixed():
     """k_add_mixed_g2 (both forms of its operand share the law): random
     lanes, (0,0) lanes (the kernel keeps p), q = p and q = -p (z = 1)."""

@@ -1,7 +1,8 @@
 """The port's fixture generator (rapidsnark_tpu_torch/fixtures.py) with
 its scalars on the device, against the JAX package's ref setup and zkey
-writer, on the CPU; and the configuration the port picks for 2^22-2^24
-proves against the JAX package's. Tolerance: exact bytes and words."""
+writer, on the CPU; and the choice of stacked or sequential NTTs for
+2^22-2^24 proves against the JAX package's. Tolerance: exact bytes and
+words."""
 
 import numpy as np
 import pytest
@@ -9,11 +10,9 @@ import torch
 
 from rapidsnark_tpu import config as JC
 from rapidsnark_tpu.io.zkey import write_zkey as jax_write_zkey
-from rapidsnark_tpu.ops import msm as JM
 from rapidsnark_tpu.ref import setup as JS
 from rapidsnark_tpu_torch import config as TC, fixtures as F
 from rapidsnark_tpu_torch.io.zkey import write_zkey
-from rapidsnark_tpu_torch.ops import msm as TM
 from rapidsnark_tpu_torch.ops.field import FQ, FR
 from rapidsnark_tpu_torch.ops.ntt import ints_to_words
 from rapidsnark_tpu_torch.ref import curve as TCURVE, setup as S
@@ -128,22 +127,10 @@ def test_fast_setup_scalars_match_jax_setup_2_8(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("logn", [22, 23, 24])
-def test_big_prove_config_matches_jax(logn, monkeypatch):
-    """The port's copy of the JAX package's geometry at 2^22-2^24 points
-    (config.msm_segment, ntt_sequential, window_group and
-    ops/msm.best_window_bits: 2^19, on and 13 at 2^24) is the JAX
-    package's. The Prover's MSM geometry is config.msm_plan's
-    (tests/test_torch_msm_plan.py); chip_smoke.py runs this one beside
-    it."""
-    for k in ("RSTPU_MSM_SEGMENT", "RSTPU_NTT_SEQ", "RSTPU_WINDOW_GROUP",
-              "RSTPU_GLV"):
-        monkeypatch.delenv(k, raising=False)
-    n = 1 << logn
-    seg = TC.msm_segment(n)
-    assert seg == JC.msm_segment(n)
-    assert TC.ntt_sequential(logn) == JC.ntt_sequential(logn)
-    assert TM.best_window_bits(n, seg) == JM.best_window_bits(n, seg)
-    assert TC.window_group() == JC.window_group(n)
-    if logn == 24:
-        assert (seg, TC.ntt_sequential(logn),
-                TM.best_window_bits(n, seg)) == (1 << 19, True, 13)
+def test_big_prove_ntt_sequential_matches_jax(logn, monkeypatch):
+    """At 2^22-2^24 the front transforms a, b, c as one stack or one at
+    a time (config.ntt_sequential) as the JAX package does: a stack at
+    2^22, one at a time from 2^23."""
+    monkeypatch.delenv("RSTPU_NTT_SEQ", raising=False)
+    assert TC.ntt_sequential(logn) == JC.ntt_sequential(logn) == \
+        (logn >= 23)

@@ -81,7 +81,6 @@ def test_digits_match_jax(c):
 def test_window_bits_and_padding_match_jax():
     for n in (1, 256, 300, 1 << 12, 1 << 17, 1 << 20):
         assert TM.pad_len(n) == JM.pad_len(n)
-        assert TM.best_window_bits(n) == JM.best_window_bits(n)
 
 
 def _points(g2, n, seed):
@@ -166,14 +165,18 @@ def test_g2_rescale_matches_jax():
 
 
 def test_segmented_window_bits_match_jax():
-    for n, seg in ((1 << 10, 256), (1 << 16, 1 << 14), (1 << 20, 1 << 19),
-                   (1 << 22, 1 << 20), (1 << 23, 1 << 20),
-                   (1 << 24, 1 << 19)):
-        assert TM.best_window_bits(n, seg) == JM.best_window_bits(n, seg)
-    from rapidsnark_tpu import config as JCFG
-    from rapidsnark_tpu_torch import config as TCFG
-    for n in (1 << 20, 1 << 21, 1 << 22, 1 << 24):
-        assert TCFG.msm_segment(n) == JCFG.msm_segment(n)
+    """Every slice of a segmented msm scans the JAX package's window
+    count (n_windows over a GLV half, or over a whole scalar without
+    GLV) in groups of group_size(nwin, G): the largest divisor of the
+    window count no larger than G, as the JAX package's msm groups them."""
+    for c in range(1, 17):
+        for bits in (JG.GLV_BITS, JM.SCALAR_BITS):
+            nwin = JM.n_windows(c, bits)
+            assert nwin == -(-bits // c)
+            for G in range(1, 11):
+                want = max(g for g in range(1, min(G, nwin) + 1)
+                           if nwin % g == 0)
+                assert TM.group_size(nwin, G) == want
 
 
 def _jax_table(table, g2):

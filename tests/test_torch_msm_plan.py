@@ -19,7 +19,6 @@ from rapidsnark_tpu_torch import device as D
 from rapidsnark_tpu_torch import fixtures as F
 from rapidsnark_tpu_torch.io.wtns import read_wtns
 from rapidsnark_tpu_torch.io.zkey import read_zkey, zkey_to_ref
-from rapidsnark_tpu_torch.ops import msm as MSM
 from rapidsnark_tpu_torch.parallel import pmsm as PM
 from rapidsnark_tpu_torch.prover import Prover
 from rapidsnark_tpu_torch.ref.groth16 import verify
@@ -128,9 +127,7 @@ def _load(name):
 
 def test_prover_takes_the_plan(monkeypatch):
     """With no argument and no variable set, the Prover's (segment, c,
-    G) are msm_plan's for its padded axis and the card's memory; the JAX
-    package's rule (msm_segment, window_group, best_window_bits) is not
-    consulted."""
+    G) are msm_plan's for its padded axis and the card's memory."""
     for k in KNOBS:
         monkeypatch.delenv(k, raising=False)
     zk, _ = _load("sqchain64")
@@ -141,13 +138,7 @@ def test_prover_takes_the_plan(monkeypatch):
         seen.append(a)
         return C.MSMPlan(256, 6, 4)
 
-    def refuse(*a, **kw):
-        raise AssertionError("the JAX package's geometry was consulted")
-
     monkeypatch.setattr(C, "msm_plan", plan)
-    for mod, name in ((C, "msm_segment"), (C, "window_group"),
-                      (MSM, "best_window_bits")):
-        monkeypatch.setattr(mod, name, refuse)
     p = Prover(zk, device="cpu")
     assert (p.segment, p.c_bits, p.window_group) == (256, 6, 4)
     assert seen == [(256, 4, 1, C.CARD_MEMORY)]
