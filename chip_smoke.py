@@ -14,7 +14,7 @@ in order; any failure exits non-zero:
      IADD3* and all instructions per Montgomery product (cuobjdump;
      skipped with a line where it is missing); fq_scale's registers and
      spills on a line of their own;
-  2. each of the fourteen kernels against its plain PyTorch version on the
+  2. each of the fifteen kernels against its plain PyTorch version on the
      same inputs on the card (exact words; G1 outputs of the relaxed law
      compared mod p; ntt_tail also against ntt_fused_pass on bits 0-6),
      and each timed beside the plain version and the least time the card
@@ -79,7 +79,11 @@ in order; any failure exits non-zero:
      key 2^(c+1) - 1, one row of 256, descending keys, one key value a
      tile); every prove below must call digit_sort and gather_cols once
      per window group of each MSM call and dma_gather twice, each launch
-     counted, at shapes held here.
+     counted, at shapes held here; prefix_totals at each geometry's
+     window group (4G rows on G1, G on G2, of width / 256 chunk totals,
+     64 multiples of the generator) against its plain version as points,
+     its bound the complete adds of a sequential prefix, and every prove
+     must call it once a window group of each MSM call (two launches).
      `add`
      is timed
      alone (its C entry point back to back: a narrow launch takes less
@@ -255,6 +259,7 @@ def log(*a):
 # them, first match wins: a profiled prove's device time by category
 PORT_KERNEL_OF = (
     ("k_scan_g", "scan_cols_packed"), ("k_add_mixed", "add_mixed"),
+    ("k_prefix_", "prefix_totals"),
     ("k_add_g", "add"), ("k_sort_", "digit_sort"),
     ("k_gather_cols", "gather_cols"), ("k_dma_gather", "dma_gather"),
     ("k_glv_digits", "glv_digits"), ("k_fq_scale", "fq_scale"),
@@ -313,22 +318,12 @@ def sass_report(exe_dir, libpath):
             f"{c['all'] / m:.1f}")
 
 
-def add_widths(rows, nb, M):
+def add_widths(rows, M):
     """{lanes: launches} of ops/fused.add in one ops/msm._window_group
-    call over `rows` rows (window group x table rows) of nb chunks and
-    2^(c-1) = M buckets: _prefix_2level, _ps_at, diff, _tree_total."""
+    call over `rows` rows (window group x table rows) and 2^(c-1) = M
+    buckets: _ps_at, diff, _tree_total (the chunk totals' prefix is
+    prefix_totals, which launches no add)."""
     w = Counter()
-
-    def hillis(lanes, size):
-        w[lanes * size] += (size - 1).bit_length() if size > 1 else 0
-
-    if nb <= 64 or nb & (nb - 1):
-        hillis(rows, nb)
-    else:
-        bi = 1 << ((nb.bit_length() + 1) // 2)
-        hillis(rows * (nb // bi), bi)
-        hillis(rows, nb // bi)
-        w[rows * nb] += 1
     w[rows * (M + 1)] += 1
     w[rows * M] += 1
     size = M
@@ -336,7 +331,7 @@ def add_widths(rows, nb, M):
         while size > 64:
             size //= 2
             w[rows * size] += 1
-    hillis(rows, size)
+    w[rows * size] += (size - 1).bit_length() if size > 1 else 0
     return w
 
 
@@ -439,14 +434,16 @@ def shape_log():
     Counter((batch, n, lo, k, dif, pre_mul?)), "pointwise": Counter((op,
     elements, b's elements)), "sort": Counter((c, rows, n)) of digit_sort,
     "gathercols": Counter((A, table rows, G, n)) of gather_cols,
-    "rowgather": Counter((table rows, words, m)) of dma_gather}."""
+    "rowgather": Counter((table rows, words, m)) of dma_gather,
+    "prefix": Counter((G1?, rows, nb)) of prefix_totals}."""
     from rapidsnark_tpu_torch.ops import front, fused, msm
     from rapidsnark_tpu_torch.ops.curve import G1P
     seen = {k: Counter() for k in ("add", "scan", "pass", "pointwise",
-                                   "sort", "gathercols", "rowgather")}
+                                   "sort", "gathercols", "rowgather",
+                                   "prefix")}
     real = (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
             front.fr_pointwise, msm.digit_sort, msm.gather_cols,
-            fused.dma_gather)
+            fused.dma_gather, fused.prefix_totals)
 
     def add(curve, p, q):
         seen["add"][(curve is G1P, p.numel() // (p.shape[-2] * 8))] += 1
@@ -482,16 +479,23 @@ def shape_log():
                            idx.shape[0])] += 1
         return real[6](table, idx, blk, nsem)
 
+    def prefix_totals(curve, tot):
+        nb = tot.shape[-3]
+        seen["prefix"][(curve is G1P, tot.numel() // (nb * tot.shape[-2] * 8),
+                        nb)] += 1
+        return real[7](curve, tot)
+
     (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
      front.fr_pointwise, msm.digit_sort, msm.gather_cols,
-     fused.dma_gather) = (add, scan, fused_pass, pointwise, digit_sort,
-                          gather_cols, dma_gather)
+     fused.dma_gather, fused.prefix_totals) = (
+         add, scan, fused_pass, pointwise, digit_sort, gather_cols,
+         dma_gather, prefix_totals)
     try:
         yield seen
     finally:
         (fused.add, fused.scan_cols_packed, fused.ntt_fused_pass,
          front.fr_pointwise, msm.digit_sort, msm.gather_cols,
-         fused.dma_gather) = real
+         fused.dma_gather, fused.prefix_totals) = real
 
 
 def rank_main(argv) -> int:
@@ -710,7 +714,7 @@ def main() -> int:
         for curve, rows in ((G1P, 4), (G2P_ISO, 1)):
             sl = Counter()
             for _ in range(nw // gg):
-                sl.update(add_widths(gg * rows, width // 256, 1 << (cc - 1)))
+                sl.update(add_widths(gg * rows, 1 << (cc - 1)))
                 if width < 2 * nmax:
                     sl[gg * rows] += 1
             adds[curve] = sl
@@ -768,6 +772,53 @@ def main() -> int:
         return {"threads": threads, "blocks": blocks,
                 "blocks_per_sm": per_sm,
                 "waves": blocks / (per_sm * sms) if per_sm else None}
+
+    def same_points(curve, a, b):
+        """Projective points a, b (..., L, 8) are the same points (X1 Z2 =
+        X2 Z1, Y1 Z2 = Y2 Z1, Z1 = 0 where Z2 = 0; G1 words mod p), by
+        the plain field ops on the card."""
+        from rapidsnark_tpu_torch.ops.curve import pack_point, unpack_point
+        f = curve.f
+        (x1, y1, z1), (x2, y2, z2) = (unpack_point(curve, a),
+                                      unpack_point(curve, b))
+        one = f.one_mont(tuple(a.shape[:-2]), a.device)
+
+        def words(u, v):
+            return pack_point((f.mul(u, v),))
+
+        def zero(z):
+            return (words(z, one) == 0).flatten(-2).all(-1)
+
+        return (torch.equal(words(x1, z2), words(x2, z1))
+                and torch.equal(words(y1, z2), words(y2, z1))
+                and torch.equal(zero(z1), zero(z2)))
+
+    # 64 multiples of each generator, projective with z = 1: the points
+    # behind prefix_totals' cases (G2 on the iso-twist)
+    ks = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+    ks[:, 0] = torch.arange(1, 65, dtype=torch.int32, device=dev) * 7919
+    one_z = torch.from_numpy(np.array(
+        [(((1 << 256) % P) >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+        dtype=np.uint32).view(np.int32)).to(dev)
+    bases = {}
+    for curve, aff in ((G1P, torch.from_numpy(
+            fixtures.fixed_base_g1(ks).view(np.int32)).to(dev)),
+            (G2P_ISO, MSM.g2_rescale_packed(torch.from_numpy(
+                fixtures.fixed_base_g2(ks).view(np.int32)).to(dev)))):
+        z = torch.zeros((64, aff.shape[1] // 2, 8), dtype=torch.int32,
+                        device=dev)
+        z[:, 0] = one_z
+        bases[curve] = torch.cat([aff, z], dim=1)
+
+    def curve_rows(curve, rows, nb):
+        """(rows, nb, L, 8): the bases drawn at random, every 7th
+        infinity."""
+        idx = torch.from_numpy(rng.randint(0, 64, size=(rows, nb))).to(dev)
+        pts = bases[curve][idx]
+        flat = pts.view(-1, pts.shape[-2], 8)
+        flat[::7] = 0
+        flat[::7, pts.shape[-2] // 3] = one_z
+        return pts
 
     log("phase2: kernels vs plain versions")
     for curve, tag in ((G1P, "g1"), (G2P_ISO, "g2")):
@@ -842,6 +893,36 @@ def main() -> int:
                    K * n * scan_add_imads(tag),
                    **geometry(1, curve, n))
             del acc, cols, sign
+        # prefix_totals: a window group's chunk totals at every geometry
+        # (rows of nb = width / 256), and 3 rows of one and of 1000
+        # totals (checked only): 64 multiples of the generator drawn at
+        # random, every 7th infinity; held against the plain version (the
+        # two-level Hillis of `add`s on the card) as points, its bound the
+        # complete adds of a sequential prefix, nb - 2 a row
+        rows_of = 4 if curve is G1P else 1
+        shapes = {(g["G"] * rows_of, g["width"] // 256): {
+            k: 2 * h["slices"] * h["groups"] for k, h in geo.items()
+            if (h["G"], h["width"]) == (g["G"], g["width"])}
+            for g in geo.values()}
+        for (rows, nb), launches in [((3, 1), None), ((3, 1000), None)] + \
+                sorted(shapes.items()):
+            tot = curve_rows(curve, rows, nb)
+            want, plain_ms = timed_once(
+                lambda: fused.prefix_totals_plain(curve, tot))
+            got = fused.prefix_totals(curve, tot)
+            torch.cuda.synchronize()
+            e = int(not same_points(curve, got, want))
+            del want, got
+            key = f"{tag} {rows} x {nb}"
+            if launches is None:
+                check_only("prefix_totals", key, e)
+                continue
+            ms, dev_t = timed2(lambda: fused.prefix_totals(curve, tot), 10)
+            record("prefix_totals", key, e, ms, dev_t, plain_ms,
+                   2 * rows * nb * L * 32,
+                   rows * max(nb - 2, 0) * mont_add[curve] * MONT_IMADS,
+                   launches=launches)
+            del tot
         torch.cuda.empty_cache()
 
     # the strict mixed adds of the fixture generator: a small batch with
@@ -1871,7 +1952,8 @@ def main() -> int:
     FRONT_KERNELS = ("fr_slot_acc", "fr_pointwise")
     # every prove runs the MSM's preparation kernels too
     PROVE_KERNELS = FRONT_KERNELS + ("glv_digits", "fq_scale", "digit_sort",
-                                     "gather_cols", "dma_gather")
+                                     "gather_cols", "dma_gather",
+                                     "prefix_totals")
     guarded = [(FF.FieldOps, n) for n in (
         "add", "sub", "neg", "double", "canon", "add_lazy", "mul", "mul_many",
         "cond_sub_2p", "add_rx", "dadd_rx", "sub_rx", "neg_rx", "from_mont",
@@ -2211,6 +2293,15 @@ def main() -> int:
                 2 * slices * groups:
             raise RuntimeError(f"scans ran at {dict(seen['scan'])}, phase 2 "
                                f"checked {dict(want)}")
+        nb = g["width"] // 256
+        want = Counter({(True, 4 * g["G"], nb): slices * groups,
+                        (False, g["G"], nb): slices * groups})
+        if seen["prefix"] != want or counts["prefix_totals"] != \
+                4 * slices * groups:
+            raise RuntimeError(f"prefix_totals ran at {dict(seen['prefix'])}"
+                               f" ({counts['prefix_totals']} launches), "
+                               f"phase 2 held {dict(want)}, 2 launches a "
+                               "call")
         if passes and (set(seen["pass"]) - ntt_checked or not seen["pass"]
                        or sum(seen["pass"].values())
                        != counts["ntt_fused_pass"]):

@@ -582,6 +582,225 @@ k_add_mixed_g2(const u32* __restrict__ p, const u32* __restrict__ q,
   if (live) st_q2(out + i * 48, r, c1);
 }
 
+// ------------------------------------------------------- prefix_totals ----
+// The exclusive running sum of each row of the MSM's chunk totals: R rows
+// of nb projective points in, out[r][k] = tot[r][0] + ... + tot[r][k-1]
+// with infinity at k = 0, the offsets that the bucket lookups add to the
+// in-chunk prefixes. It replaces no TPU kernel: the JAX package and the
+// port before it ran a two-level Hillis-Steele prefix of `add`s, rolls
+// and selects (~9 complete adds a total in ~80 launches a window group).
+// Bound, like `add`'s, by the adds' multiply-adds; so the design spends
+// few adds a total and keeps the card full:
+//   * a lane (one thread on G1, two on G2, as `add`) folds PFX_T
+//     consecutive totals of a row in registers; a block's LANES lanes
+//     cover a tile of LANES x PFX_T totals;
+//   * k_prefix_tiles: each block scans its lanes' sums in shared memory
+//     (Hillis-Steele, log2(LANES) steps of one add) and writes each lane's
+//     exclusive prefix inside the tile and the tile's total;
+//   * k_prefix_out: each block sums the totals of its row's earlier tiles
+//     (the carry: a lane folds every LANES-th, a halving tree in shared
+//     memory), adds it to each lane's prefix, and the lane walks its
+//     PFX_T totals again, writing the exclusive prefix before each.
+// A lane runs 2 (PFX_T - 1) + log2(LANES) + 1 adds and its share of the
+// carry: ~2.9 adds a total on G1, ~2.6 on G2, in two launches for any
+// nb >= 1. PFX_T = 8 against 2 and 4: 0.289 / 0.664 / 0.425 ms for the
+// 2^24 plan's G1 window group (16 x 16,384 totals), 0.300 / 0.753 /
+// 0.350 for its G2 one (4 x 16,384; H100, PERF.md): a longer fold
+// spreads the lanes' scan over more totals, which gains more than the
+// fewer lanes lose in occupancy. The adds run in another order than the
+// plain version's, so the words differ from it and the points are the
+// same. Every warp runs each add whenever one of its lanes needs it
+// (G2's adds shuffle between a lane's two threads), on infinity where a
+// lane has no total.
+constexpr int PFX_T = 8;   // totals a lane folds
+
+template <int CURVE>
+struct Pfx;
+
+template <>
+struct Pfx<0> {            // G1, relaxed law, one thread a lane
+  using V = P1;
+  static constexpr int W = 24, THREADS = G1_THREADS, TPL = 1, MINB = 1;
+  static constexpr int LANES = THREADS / TPL;
+  __device__ static void ld(V& a, const u32* p, bool) { ld_p1(a, p); }
+  __device__ static void st(u32* p, const V& a, bool) { st_p1(p, a); }
+  __device__ static void add(V& r, const V& a, const V& b, bool) {
+    g1_add_rx(r, a, b);
+  }
+  __device__ static void inf(V& a, bool) {
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      a.x[i] = a.z[i] = 0;
+      a.y[i] = K_R1[FQ_ID][i];
+    }
+  }
+};
+
+template <>
+struct Pfx<1> {            // G2 iso-twist, two threads a lane
+  using V = Q2;
+  static constexpr int W = 48, THREADS = G2_THREADS, TPL = 2, MINB = 6;
+  static constexpr int LANES = THREADS / TPL;
+  __device__ static void ld(V& a, const u32* p, bool c1) { ld_q2(a, p, c1); }
+  __device__ static void st(u32* p, const V& a, bool c1) { st_q2(p, a, c1); }
+  __device__ static void add(V& r, const V& a, const V& b, bool c1) {
+    s_add(r, a, b, c1);
+  }
+  __device__ static void inf(V& a, bool c1) {
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      a.x[i] = a.z[i] = 0;
+      a.y[i] = c1 ? 0u : K_R1[FQ_ID][i];
+    }
+  }
+};
+
+// s += p[k], for the lanes whose `live` holds; the warp adds if any does
+template <class F>
+__device__ __forceinline__ void pfx_acc(typename F::V& s, const u32* p,
+                                        bool live, bool c1) {
+  if (__any_sync(FULL_MASK, live)) {
+    typename F::V b, r;
+    if (live)
+      F::ld(b, p, c1);
+    else
+      F::inf(b, c1);
+    F::add(r, s, b, c1);
+    if (live) s = r;
+  }
+}
+
+// tot (R, nb, W); block (row, tile) of R x tiles: lane_ex (R x tiles,
+// LANES, W) each lane's exclusive prefix in the tile, tile_tot (R x tiles,
+// W) the tile's total
+template <int CURVE>
+__global__ void __launch_bounds__(Pfx<CURVE>::THREADS, Pfx<CURVE>::MINB)
+k_prefix_tiles(const u32* __restrict__ tot, u32* __restrict__ lane_ex,
+               u32* __restrict__ tile_tot, long long nb, int tiles) {
+  using F = Pfx<CURVE>;
+  __shared__ __align__(16) u32 sm[F::LANES * F::W];
+  const int lane = threadIdx.x / F::TPL;
+  const bool c1 = threadIdx.x % F::TPL;
+  const long long row = blockIdx.x / tiles;
+  const long long first =
+      ((long long)(blockIdx.x % tiles) * F::LANES + lane) * PFX_T;
+  const u32* src = tot + row * nb * F::W;
+  typename F::V s, b;
+  if (first < nb)
+    F::ld(s, src + first * F::W, c1);
+  else
+    F::inf(s, c1);
+#pragma unroll 1
+  for (int i = 1; i < PFX_T; i++)
+    pfx_acc<F>(s, src + (first + i) * F::W, first + i < nb, c1);
+  // inclusive scan of the lanes' sums
+  u32* mine = sm + lane * F::W;
+  F::st(mine, s, c1);
+  __syncthreads();
+#pragma unroll 1
+  for (int sh = 1; sh < F::LANES; sh <<= 1) {
+    bool act = lane >= sh;
+    if (act)
+      F::ld(b, mine - sh * F::W, c1);
+    else
+      F::inf(b, c1);
+    __syncthreads();
+    if (__any_sync(FULL_MASK, act)) {
+      typename F::V r;
+      F::add(r, b, s, c1);
+      if (act) s = r;
+    }
+    F::st(mine, s, c1);
+    __syncthreads();
+  }
+  if (lane)
+    F::ld(b, mine - F::W, c1);
+  else
+    F::inf(b, c1);
+  F::st(lane_ex + ((long long)blockIdx.x * F::LANES + lane) * F::W, b, c1);
+  if (lane == F::LANES - 1)
+    F::st(tile_tot + (long long)blockIdx.x * F::W, s, c1);
+}
+
+// out (R, nb, W): the carry of the row's earlier tiles plus each lane's
+// prefix, then the lane's walk over its totals
+template <int CURVE>
+__global__ void __launch_bounds__(Pfx<CURVE>::THREADS, Pfx<CURVE>::MINB)
+k_prefix_out(const u32* __restrict__ tot, const u32* __restrict__ lane_ex,
+             const u32* __restrict__ tile_tot, u32* __restrict__ out,
+             long long nb, int tiles) {
+  using F = Pfx<CURVE>;
+  __shared__ __align__(16) u32 sm[F::LANES * F::W];
+  const int lane = threadIdx.x / F::TPL;
+  const bool c1 = threadIdx.x % F::TPL;
+  const long long row = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  typename F::V c, e;
+  F::inf(c, c1);
+  if (tile) {                                  // the same in the block
+    const u32* tt = tile_tot + row * tiles * F::W;
+#pragma unroll 1
+    for (int k = lane; k - lane < tile; k += F::LANES)
+      pfx_acc<F>(c, tt + (long long)k * F::W, k < tile, c1);
+    // halving tree over the m lanes that hold tiles
+    const int m = tile < F::LANES ? tile : F::LANES;
+    u32* mine = sm + lane * F::W;
+    F::st(mine, c, c1);
+    __syncthreads();
+    int h = 1;
+    while (2 * h < m) h *= 2;
+#pragma unroll 1
+    for (; h >= 1 && m > 1; h >>= 1) {
+      bool act = lane < h && lane + h < m;
+      pfx_acc<F>(c, mine + h * F::W, act, c1);
+      __syncthreads();
+      if (act) F::st(mine, c, c1);
+      __syncthreads();
+    }
+    F::ld(c, sm, c1);
+  }
+  F::ld(e, lane_ex + ((long long)blockIdx.x * F::LANES + lane) * F::W, c1);
+  if (tile) {
+    typename F::V r;
+    F::add(r, c, e, c1);
+    e = r;
+  }
+  const long long first = ((long long)tile * F::LANES + lane) * PFX_T;
+  const u32* src = tot + row * nb * F::W;
+  u32* dst = out + row * nb * F::W;
+#pragma unroll 1
+  for (int i = 0; i < PFX_T; i++) {
+    long long k = first + i;
+    if (k < nb) F::st(dst + k * F::W, e, c1);
+    if (i + 1 < PFX_T) pfx_acc<F>(e, src + k * F::W, k + 1 < nb, c1);
+  }
+}
+
+// R rows of nb totals: both launches; work holds lane_ex then tile_tot
+template <int CURVE>
+static int launch_prefix(const void* tot, void* out, void* work,
+                         long long work_words, long long rows, long long nb,
+                         void* stream) {
+  using F = Pfx<CURVE>;
+  long long tiles = (nb + F::LANES * PFX_T - 1) / (F::LANES * PFX_T);
+  long long blocks = rows * tiles;
+  if (blocks <= 0) return 0;
+  if (blocks > 0x7fffffffLL || tiles > 0x7fffffffLL ||
+      work_words < blocks * (F::LANES + 1) * F::W)
+    return (int)cudaErrorInvalidValue;
+  u32* lane_ex = (u32*)work;
+  u32* tile_tot = lane_ex + blocks * F::LANES * F::W;
+  int nt = (int)tiles;
+  cudaStream_t s = (cudaStream_t)stream;
+  k_prefix_tiles<CURVE><<<(unsigned)blocks, F::THREADS, 0, s>>>(
+      (const u32*)tot, lane_ex, tile_tot, nb, nt);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  k_prefix_out<CURVE><<<(unsigned)blocks, F::THREADS, 0, s>>>(
+      (const u32*)tot, lane_ex, tile_tot, (u32*)out, nb, nt);
+  return (int)cudaGetLastError();
+}
+
 static inline unsigned nblocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -641,6 +860,16 @@ int rs_scan_cols(int curve, const void* acc, const void* cols,
   cudaLaunchKernel(g.fn, dim3((unsigned)g.blocks), dim3(g.threads), args,
                    g.smem, (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// curve: 0 = G1 (relaxed law), 1 = G2 iso-twist; tot and out (rows, nb,
+// L, 8); work: the wrapper's workspace of work_words int32 words
+int rs_prefix_totals(int curve, const void* tot, void* out, void* work,
+                     long long work_words, long long rows, long long nb,
+                     void* stream) {
+  return curve == 0
+             ? launch_prefix<0>(tot, out, work, work_words, rows, nb, stream)
+             : launch_prefix<1>(tot, out, work, work_words, rows, nb, stream);
 }
 
 int rs_add_mixed_packed(int curve, const void* p, const void* q, void* out,

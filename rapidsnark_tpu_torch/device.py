@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("add", "scan_cols_packed", "ntt_fused_pass", "ntt_butterfly",
            "ntt_tail", "add_mixed_packed", "add_mixed", "dma_gather",
            "fr_slot_acc", "fr_pointwise", "glv_digits", "fq_scale",
-           "digit_sort", "gather_cols")
+           "digit_sort", "gather_cols", "prefix_totals")
 # launches of each kernel since the last reset_counts(); a wrapper adds
 # one for each launch it makes and nowhere else
 counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -47,6 +47,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "rs_add": [_I, _VP, _VP, _VP, _LL, _VP],
     "rs_scan_cols": [_I, _VP, _VP, _VP, _VP, _LL, _I, _VP],
+    "rs_prefix_totals": [_I, _VP, _VP, _VP, _LL, _LL, _LL, _VP],
     "rs_ntt_butterfly": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _VP],
     "rs_ntt_fused_pass": [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP],
     "rs_ntt_tail": [_VP, _VP, _VP, _LL, _I, _I, _VP],

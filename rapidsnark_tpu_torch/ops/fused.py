@@ -1,4 +1,5 @@
-"""The port's eight kernels, each beside its plain version.
+"""The port's curve, NTT and row-gather kernels, each beside its plain
+version.
 
 Counterpart of `rapidsnark_tpu/ops/fused.py` (Pallas kernels for the
 TPU) and of the row gather of `tools/bench_dma_gather.py`. Each wrapper
@@ -11,6 +12,7 @@ There is no fallback.
 
   add               complete add; G1 relaxed law, G2 on the iso-twist
   scan_cols_packed  K sequential signed mixed adds, every accumulator out
+  prefix_totals     exclusive running sum of rows of projective points
   ntt_butterfly     one radix-2 layer over split (lo, hi) halves
   ntt_fused_pass    consecutive radix-2 layers of a transform in one pass
   ntt_tail          the layers on bits 0-6 of the per-stage NTT path
@@ -124,6 +126,82 @@ def scan_cols_packed(curve, acc: torch.Tensor, cols: torch.Tensor,
                                      D.stream(acc))
     D.check(rc, "scan_cols_packed")
     D.count("scan_cols_packed")
+    return out
+
+
+# ------------------------------------------------------------ prefix_totals --
+PREFIX_FOLD = 8                  # csrc/curve.cu PFX_T: totals a lane folds
+PREFIX_LANES = (128, 32)         # lanes a block, by _curve_id
+
+
+def hillis_prefix(curve, pt: torch.Tensor, size: int) -> torch.Tensor:
+    """Inclusive running group sum along the lane axis (-3) of packed
+    projective points: log2(size) roll-and-add steps, each an `add`."""
+    steps = (size - 1).bit_length() if size > 1 else 0
+    lane = torch.arange(size, device=pt.device)
+    pt = pt.contiguous()
+    for i in range(steps):
+        sh = 1 << i
+        rolled = torch.roll(pt, sh, dims=-3)
+        summed = add(curve, pt, rolled.contiguous())
+        pt = torch.where((lane < sh)[:, None, None], pt, summed)
+    return pt
+
+
+def prefix_totals_plain(curve, tot: torch.Tensor) -> torch.Tensor:
+    """A two-level Hillis-Steele prefix (size/bi blocks of bi, the inner
+    prefix, the outer prefix of the block totals, one broadcast add;
+    hillis_prefix alone below 65 totals or off powers of two), shifted
+    one place with infinity in front."""
+    size = tot.shape[-3]
+    bsh, tail = tuple(tot.shape[:-3]), tuple(tot.shape[-2:])
+    inf = pack_point(curve.inf(bsh + (size,), tot.device))
+    first = (torch.arange(size, device=tot.device) == 0)[:, None, None]
+    if size <= 64 or (size & (size - 1)):
+        incl = hillis_prefix(curve, tot, size)
+    else:
+        bi = 1 << ((size.bit_length() + 1) // 2)
+        bo = size // bi
+        inner = hillis_prefix(curve, tot.reshape(bsh + (bo, bi) + tail), bi)
+        outer = hillis_prefix(curve, inner[..., -1, :, :], bo)
+        rolled = torch.roll(outer, 1, dims=-3)
+        excl = torch.where(first[:bo], inf[..., :bo, :, :], rolled)
+        incl = add(curve, inner, excl[..., None, :, :].expand(
+            inner.shape).contiguous()).reshape(tot.shape)
+    return torch.where(first, inf, torch.roll(incl, 1, dims=-3))
+
+
+def prefix_totals(curve, tot: torch.Tensor) -> torch.Tensor:
+    """Exclusive running group sum along the lane axis (-3) of packed
+    projective points: tot (*b, nb, L, 8) contiguous, nb >= 1 (L = 3 on
+    G1, relaxed; 6 on the G2 iso-twist). Returns a
+    new (*b, nb, L, 8): out[..., k] = tot[..., 0] + ... + tot[..., k-1],
+    infinity at k = 0. On the card two launches (csrc/curve.cu
+    k_prefix_tiles, k_prefix_out) whose adds run in another order than
+    the plain version's: the same points, other projective words."""
+    if tot.dim() < 3 or tot.shape[-3] < 1:
+        raise ValueError(f"prefix_totals: totals {tuple(tot.shape)} are "
+                         "not (..., nb >= 1, L, 8)")
+    if tot.device.type == "cpu":
+        return prefix_totals_plain(curve, tot)
+    cid = _curve_id(curve)
+    L = _coords(curve)
+    D.require(tot, "prefix_totals.tot", tail=(L, 8))
+    nb = tot.shape[-3]
+    rows = tot.numel() // (nb * L * 8)
+    out = torch.empty_like(tot)
+    if rows == 0:
+        return out
+    # the workspace: each lane's prefix in its tile and each tile's total
+    lanes = PREFIX_LANES[cid]
+    tiles = -(-nb // (lanes * PREFIX_FOLD))
+    words = rows * tiles * (lanes + 1) * L * 8
+    work = torch.empty(words, dtype=torch.int32, device=tot.device)
+    rc = D.lib("curve").rs_prefix_totals(cid, tot.data_ptr(), out.data_ptr(),
+                                         work.data_ptr(), words, rows, nb,
+                                         D.stream(tot))
+    D.check(rc, "prefix_totals")
+    D.count("prefix_totals", 2)
     return out
 
 

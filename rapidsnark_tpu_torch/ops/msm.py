@@ -3,9 +3,9 @@
 Counterpart of `rapidsnark_tpu/ops/msm.py`. Per c-bit window: signed
 digit recode, one stable sort by digit, a gather of the sorted points,
 the all-positions prefix sums of the sorted points
-(ops/fused.scan_cols_packed over C = 256 columns, then a two-level
-prefix of the chunk totals with ops/fused.add), and the telescoped window
-total sum_j j*B_j = sum_{j<M} (A_M - A_j) with A_j the prefix sum at the
+(ops/fused.scan_cols_packed over C = 256 columns, then the exclusive
+prefix of the chunk totals, ops/fused.prefix_totals), and the telescoped
+window total sum_j j*B_j = sum_{j<M} (A_M - A_j) with A_j the prefix sum at the
 bucket-j boundary (one boundary gather-add, one wide difference, one
 halving tree). Windows ride a batch axis in groups of G; scalars split
 by GLV into 128-bit halves over the virtual table [P, phi(P)]; the G2
@@ -106,41 +106,6 @@ def _batch_index(shape, nbatch: int, device):
 # prefix machinery
 # ---------------------------------------------------------------------------
 
-def _hillis_prefix(curve, pt, size: int):
-    """Inclusive running group sum along the lane axis (-3): log2(size)
-    roll-and-add steps."""
-    steps = (size - 1).bit_length() if size > 1 else 0
-    lane = torch.arange(size, device=pt.device)
-    pt = pt.contiguous()
-    for i in range(steps):
-        sh = 1 << i
-        rolled = torch.roll(pt, sh, dims=-3)
-        summed = fused.add(curve, pt, rolled.contiguous())
-        pt = _select(lane < sh, pt, summed)
-    return pt
-
-
-def _prefix_2level(curve, pt, size: int):
-    """Inclusive running group sum, work-efficient: (size/bi, bi) blocks,
-    inner prefix, outer prefix of the block totals, one broadcast add."""
-    if size <= 64 or (size & (size - 1)):
-        return _hillis_prefix(curve, pt, size)
-    bi = 1 << ((size.bit_length() + 1) // 2)
-    bo = size // bi
-    bsh = tuple(pt.shape[:-3])
-    tail = tuple(pt.shape[-2:])
-    split = pt.reshape(bsh + (bo, bi) + tail)
-    inner = _hillis_prefix(curve, split, bi)
-    tots = inner[..., -1, :, :]
-    outer = _hillis_prefix(curve, tots, bo)
-    rolled = torch.roll(outer, 1, dims=-3)
-    excl = _select(torch.arange(bo, device=pt.device) == 0,
-                   point_inf(curve, bsh + (bo,), pt.device), rolled)
-    summed = fused.add(curve, inner, excl[..., None, :, :].expand(
-        inner.shape).contiguous())
-    return summed.reshape(bsh + (size,) + tail)
-
-
 def _chunked_prefix(curve, cols, sign, batch: Tuple[int, ...], nb: int):
     """All-positions inclusive prefix sums of sorted affine points.
 
@@ -149,14 +114,9 @@ def _chunked_prefix(curve, cols, sign, batch: Tuple[int, ...], nb: int):
     within (C, *batch, nb, L, 8) the in-chunk inclusive prefixes and
     excl (*batch, nb, L, 8) the exclusive chunk offsets, so
     PS(k) = excl[k // C] + within[k % C] for the first k+1 entries."""
-    dev = cols.device
-    acc0 = point_inf(curve, batch + (nb,), dev)
+    acc0 = point_inf(curve, batch + (nb,), cols.device)
     within = fused.scan_cols_packed(curve, acc0, cols, sign)
-    incl = _prefix_2level(curve, within[-1], nb)
-    rolled = torch.roll(incl, 1, dims=-3)
-    excl = _select(torch.arange(nb, device=dev) == 0,
-                   point_inf(curve, batch + (nb,), dev), rolled)
-    return within, excl
+    return within, fused.prefix_totals(curve, within[-1])
 
 
 def _row_gather(table, idx):
@@ -199,7 +159,7 @@ def _tree_total(curve, pt, size: int):
             pt = fused.add(curve, pt[..., :half, :, :].contiguous(),
                            pt[..., half:, :, :].contiguous())
             size = half
-    res = _hillis_prefix(curve, pt, size)
+    res = fused.hillis_prefix(curve, pt, size)
     return res[..., -1, :, :]
 
 

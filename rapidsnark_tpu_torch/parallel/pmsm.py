@@ -17,7 +17,7 @@ they are.
 
 from __future__ import annotations
 
-from ..ops import msm as MSM
+from ..ops import fused, msm as MSM
 from .multihost import Mesh
 
 
@@ -52,7 +52,7 @@ def msm_sharded(curve, local_pts, local_scalars, c: int, mesh: Mesh,
     if sc is not curve:
         part = MSM._iso_scale(curve, part, back=False)
     lanes = mesh.all_gather(part).movedim(0, -3)          # (W, *b, D, L, 8)
-    total = MSM._hillis_prefix(sc, lanes.contiguous(), mesh.size)
+    total = fused.hillis_prefix(sc, lanes.contiguous(), mesh.size)
     wpts = total[..., -1, :, :].contiguous()
     if combine:
         wpts = MSM._horner(sc, wpts, wpts.shape[0], c)

@@ -10,7 +10,10 @@ Inputs are random canonical field elements from numpy seeds, with
 (0,0) infinity columns and random signs for the scan. Tolerance: exact
 words (REDC outputs are unique whatever the limb width; the G1 kernels
 run the plain relaxed law's op sequence, and every value of the G2 law
-is canonical, whatever the order of its products)."""
+is canonical, whatever the order of its products), except where the adds
+run in another order than the plain version's: prefix_totals and the
+MSM's window totals are compared as points (projective cross products,
+G1 mod p)."""
 
 import numpy as np
 import pytest
@@ -40,6 +43,26 @@ def _fe(mod, shape, seed, dev):
 
 # lane counts that divide no block or thread split of the adders
 RAGGED = [1, 31, 33, 1000, 4097]
+
+
+def _same_points(curve, a, b):
+    """Projective points a, b (..., L, 8) are the same points: X1 Z2 =
+    X2 Z1, Y1 Z2 = Y2 Z1 and Z1 = 0 exactly where Z2 = 0 (products of
+    the plain field ops, canonical from relaxed G1 words too)."""
+    from rapidsnark_tpu_torch.ops.curve import pack_point, unpack_point
+    f = curve.f
+    (x1, y1, z1), (x2, y2, z2) = unpack_point(curve, a), unpack_point(curve, b)
+    one = f.one_mont(tuple(a.shape[:-2]), a.device)
+
+    def words(u, v):
+        return pack_point((f.mul(u, v),))
+
+    def zero(z):                    # z times 1: canonical words
+        return (words(z, one) == 0).flatten(-2).all(-1)
+
+    return (torch.equal(words(x1, z2), words(x2, z1))
+            and torch.equal(words(y1, z2), words(y2, z1))
+            and torch.equal(zero(z1), zero(z2)))
 
 
 def _one_words(dev):
@@ -213,8 +236,8 @@ def test_tail_kernel_matches_plain_and_fused_pass(power, batch, dif):
 @pytest.mark.cuda
 def test_segmented_msm_on_card_matches_cpu():
     """msm(segment=, row_slice=) through the kernels on the card gives
-    the words of the plain path on the CPU (stable sorts and word-exact
-    kernels on both sides), with one scan launch per slice."""
+    the points of the plain path on the CPU (the chunk totals' prefix
+    adds in another order there), with one scan launch per slice."""
     dev = _dev()
     from rapidsnark_tpu_torch import device as D
     from rapidsnark_tpu_torch.ops import msm as TM
@@ -228,7 +251,7 @@ def test_segmented_msm_on_card_matches_cpu():
                  row_slice=(1, 2))
     torch.cuda.synchronize()
     assert D.counts["scan_cols_packed"] == 4
-    assert torch.equal(got.cpu(), want)
+    assert _same_points(G1P, got.cpu(), want)
 
 
 def _gather_case(logn, R, repeats, dev):
@@ -682,7 +705,7 @@ def test_gather_cols_kernel_matches_plain(A, rows, n, view):
 def test_segmented_g2_msm_on_card_matches_cpu(glv):
     """The G2 MSM in slices on the card (digits, phi, negations and the
     iso-twist's scaling on the preparation kernels) gives the CPU's
-    words; every slice launches glv_digits once."""
+    points; every slice launches glv_digits once."""
     dev = _dev()
     from rapidsnark_tpu_torch import device as D
     from rapidsnark_tpu_torch.ops import msm as TM
@@ -697,7 +720,7 @@ def test_segmented_g2_msm_on_card_matches_cpu(glv):
     slices = 4 if glv else 2
     assert D.counts["glv_digits"] == slices
     assert D.counts["fq_scale"] == (2 if glv else 0) + slices + 1
-    assert torch.equal(got.cpu(), want)
+    assert _same_points(G2P, got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -787,3 +810,129 @@ def test_witness_ring_upload_equals_source(source, tmp_path):
         assert g.dtype == torch.int32 and tuple(g.shape) == (rows, 8)
         assert np.array_equal(g.cpu().numpy().view(np.uint32), w)
     ring.release()
+
+
+def _lift_p(t):
+    """Packed words (..., 8) of values below p, plus p: the same residue
+    in the relaxed [p, 2p) range."""
+    w = t.to(torch.int64) & 0xFFFFFFFF
+    out, carry = [], 0
+    for i in range(8):
+        v = w[..., i] + ((P >> (32 * i)) & 0xFFFFFFFF) + carry
+        out.append(v & 0xFFFFFFFF)
+        carry = v >> 32
+    v = torch.stack(out, dim=-1)
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def _curve_rows(g2, rows, nb, seed, dev):
+    """(rows, nb, L, 8) projective points on the card, of G1 or of the G2
+    iso-twist: 64 random multiples of the generator drawn at random, every
+    coordinate times a random s (so z = s), every 7th point infinity; on
+    G1 a third of the coordinates lifted by p (the relaxed range)."""
+    import random
+    from rapidsnark_tpu_torch.ops.curve import pack_point, unpack_point
+    from rapidsnark_tpu_torch.ref.field import FQ_CTX
+    from test_torch_prefix_totals import (G1_GEN, G1H, G2H_ISO, _iso_gen,
+                                          _words)
+    rng = random.Random(seed)
+    curve, H, gen = ((G2P_ISO, G2H_ISO, _iso_gen()) if g2
+                     else (G1P, G1H, G1_GEN))
+    one = [FQ_CTX.to_mont(1)] + [0] * g2
+    base = []
+    for _ in range(64):
+        x, y = H.to_affine(H.mul(H.from_affine(gen),
+                                 rng.randrange(1, 1 << 20)))
+        flat = [c for v in (x, y) for c in (v if g2 else (v,))]
+        base.append([_words(FQ_CTX.to_mont(c)) for c in flat]
+                    + [_words(c) for c in one])
+    base = torch.from_numpy(np.array(base, np.uint32).view(np.int32))
+    rs = np.random.RandomState(seed)
+    pts = base[torch.from_numpy(rs.randint(0, 64, size=(rows, nb)))].to(dev)
+    s = _fe(P, (rows, nb, 1 + g2), seed + 1, dev)
+    sc = unpack_point(curve, s)[0]
+    f = curve.f
+    pts = pack_point(tuple(f.mul(c, sc) for c in unpack_point(curve, pts)))
+    flat = pts.view(-1, pts.shape[-2], 8)
+    flat[::7] = 0
+    flat[::7, 2 if g2 else 1] = _one_words(dev)       # (0, 1, 0)
+    if not g2:
+        lift = torch.from_numpy(rs.rand(rows, nb, 3) < 1 / 3).to(dev)
+        pts = torch.where(lift[..., None], _lift_p(pts), pts)
+    return pts.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2,rows,nb", [
+    (False, 16, 16384), (True, 4, 16384),     # the 2^24 plan's window group
+    (False, 16, 20224), (True, 4, 20224),     # the wide 2^22 circuit's
+    (False, 16, 1), (True, 4, 1), (False, 3, 1000), (True, 2, 513)])
+def test_prefix_totals_kernel_matches_plain(g2, rows, nb):
+    """The kernel's exclusive prefix of rows of chunk totals is the plain
+    version's (on the card: the two-level Hillis-Steele prefix of `add`s)
+    point for point: at the 2^24 plan's shapes (16 x 16,384 G1 and
+    4 x 16,384 G2 totals), at nb = 80,896 / 4 (no power of two), at
+    nb = 1 and on ragged rows; two launches a call and no `add`."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    curve = G2P_ISO if g2 else G1P
+    tot = _curve_rows(g2, rows, nb, rows * nb + g2, dev)
+    D.reset_counts()
+    got = TFU.prefix_totals(curve, tot)
+    assert D.counts["prefix_totals"] == 2 and D.counts["add"] == 0
+    want = TFU.prefix_totals_plain(curve, tot)
+    torch.cuda.synchronize()
+    assert got.shape == tot.shape
+    assert _same_points(curve, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True])
+def test_window_group_prefix_is_one_kernel_call(g2):
+    """One ops/msm._window_group on the card takes its chunk totals'
+    prefix from one prefix_totals call (two launches) and launches `add`
+    for the buckets alone: _ps_at's add, the difference, the halving tree
+    down to 64 lanes and the Hillis steps over them."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import device as D
+    from rapidsnark_tpu_torch.ops import msm as TM
+    n, c, G = 1024, 8, 2
+    curve, A = (G2P_ISO, 4) if g2 else (G1P, 2)
+    pts = _fe(P, (n, A), 81, dev)
+    rs = np.random.RandomState(82)
+    digits = torch.from_numpy(rs.randint(0, 1 << (c + 1), size=(G, n))
+                              .astype(np.int64)).to(dev)
+    D.reset_counts()
+    TM._window_group(curve, pts, digits, n, c)
+    torch.cuda.synchronize()
+    size, tree = 1 << (c - 1), 0
+    while size > 64:
+        size //= 2
+        tree += 1
+    assert D.counts["prefix_totals"] == 2
+    assert D.counts["scan_cols_packed"] == 1
+    assert D.counts["add"] == 2 + tree + (size - 1).bit_length()
+
+
+@pytest.mark.cuda
+def test_prove_2_20_unchanged_by_prefix_kernel(tmp_path, monkeypatch):
+    """A generated 2^20 sqchain proved on the card for a fixed (r, s) gives
+    the same proof and public signals with the chunk totals' prefix on
+    its kernel as with the plain version in its place."""
+    dev = _dev()
+    from rapidsnark_tpu_torch import fixtures
+    from rapidsnark_tpu_torch.io.wtns import read_wtns
+    from rapidsnark_tpu_torch.io.zkey import read_zkey
+    from rapidsnark_tpu_torch.prover import Prover
+    zpath, wpath = fixtures.generate(20, str(tmp_path), device=dev)
+    with read_zkey(zpath) as zk:
+        prover = Prover(zk, device=dev)
+        w = read_wtns(wpath).values
+        r, s = 0x1234567, 0x89ABCDE
+        proofs = []
+        for prefix in (TFU.prefix_totals, TFU.prefix_totals_plain):
+            monkeypatch.setattr(TFU, "prefix_totals", prefix)
+            proof, pub = prover.prove(w, r=r, s=s)
+            proofs.append((proof.a, proof.b, proof.c, list(pub)))
+        prover.release()
+    assert proofs[0] == proofs[1]
